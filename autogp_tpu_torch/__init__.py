@@ -5,10 +5,13 @@ on one NVIDIA Hopper GPU. The JAX package `autogp_tpu` stays the reference:
 module names mirror it, and tests/test_torch_*.py hold each ported function
 to its JAX counterpart on the CPU in float64.
 
-Ported so far: the SMC value path (prior, moves, reweight/resample, the
-batched LML, predict, to_dict/from_dict) with two hand-written CUDA kernels
-(ops/cov.py, ops/chol.py). HMC waits for the gradient kernels; see
-ROADMAP.md. This package never imports jax.
+Ported so far: SMC with data annealing, parameter and noise HMC included
+(prior, moves, reweight/resample, the batched LML and its gradient,
+predict, to_dict/from_dict), on four hand-written CUDA kernels: the
+covariance assembly (ops/cov.py), the panel Cholesky (ops/chol.py), the
+K^-1 substitution (ops/kinv.py) and the assembly backward (ops/cov_vjp.py).
+Entry points run on the card unless the caller passes device="cpu". This
+package imports neither jax nor autogp_tpu.
 """
 
 from autogp_tpu_torch.config import GPConfig  # noqa: F401

@@ -1,15 +1,16 @@
 """User-facing API, the SMC subset (port of autogp_tpu/api.py).
 
-`GPModel` holds a batch of tensor-trace particles on one explicit device
-plus the data transforms; `fit_smc` runs SMC with data annealing (n_hmc=0
-until the gradient kernels are ported); `predict` returns per-particle
+`GPModel` holds a batch of tensor-trace particles on one device (the card
+unless the caller asks for the CPU) plus the data transforms; `fit_smc`
+runs SMC with data annealing, parameter and noise HMC included; `predict`
+returns per-particle
 predictive means and quantiles in the original data space; `to_dict` /
 `from_dict` use the dict format of autogp_tpu.api.to_dict (:916-993), so a
 model fitted by the JAX package can be carried over and back.
 
 Not ported yet: greedy search, MCMC-only fits, add_data/remove_data,
-predict_proba/predict_mvn/predict_sum, decompose and friends, HMC, depth
-annealing and the mesh.
+predict_proba/predict_mvn/predict_sum, decompose and friends, fit_smc's
+callback_fn, depth annealing and the mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from autogp_tpu_torch import transforms as TR
 from autogp_tpu_torch import tree as T
 from autogp_tpu_torch.config import GPConfig
 from autogp_tpu_torch.inference import smc
+from autogp_tpu_torch.inference.hmc import HMCConfig
 
 # ---------------------------------------------------------------------------
 # Global seeding (api.jl:34-37; autogp_tpu/api.py:38-49)
@@ -78,12 +80,13 @@ def to_numeric(ds) -> np.ndarray:
 class GPModel:
     """Weighted particle collection over GP kernel structures + parameters.
 
-    `device` is explicit ("cuda" without a card raises; nothing falls back
-    to the CPU). `dtype` defaults to float32 on CUDA (the kernels' type)
-    and float64 on the CPU (the parity type)."""
+    `device` defaults to "cuda": without a card that raises, and nothing
+    falls back to the CPU; pass device="cpu" for the plain versions.
+    `dtype` defaults to float32 on CUDA (the kernels' type) and float64
+    on the CPU (the parity type)."""
 
     def __init__(self, ds, y, n_particles: int = 8,
-                 config: Optional[GPConfig] = None, *, device,
+                 config: Optional[GPConfig] = None, *, device="cuda",
                  dtype: Optional[torch.dtype] = None,
                  _defer_init: bool = False):
         self.device = backend.resolve_device(device)
@@ -96,10 +99,23 @@ class GPModel:
         self.ds_transform = TR.LinearTransform.from_minmax(
             to_numeric(self.ds), 0, 1)
         self.y_transform = TR.LinearTransform.from_mean_width(self.y, 1)
+        self.round_stats: List[dict] = []   # per-round totals of fit_smc
         if not _defer_init:
             self.particles = smc.initialize(
                 _next_generator(self.device), n_particles, self._dataset(),
                 self.config, self.tables)
+
+    @classmethod
+    def _from_state(cls, particles: smc.Particles, config: GPConfig, ds, y,
+                    ds_transform, y_transform) -> "GPModel":
+        """A model over (ds, y) holding `particles` as they are, with the
+        given transforms (the intermediate models of callbacks.py)."""
+        m = cls(ds, y, n_particles=particles.n_particles, config=config,
+                device=particles.params.device, dtype=particles.params.dtype,
+                _defer_init=True)
+        m.ds_transform, m.y_transform = ds_transform, y_transform
+        m.particles = particles
+        return m
 
     @property
     def particles(self) -> smc.Particles:
@@ -201,23 +217,40 @@ def observation_noise_variances(model: GPModel, reparameterize: bool = True):
 # fit_smc (api.jl:212-249)
 # ---------------------------------------------------------------------------
 
+def _hmc_config(hmc_config, default_n_exit) -> HMCConfig:
+    """HMCConfig from None, a dict of its fields, or an HMCConfig
+    (autogp_tpu/api.py:263-270)."""
+    if isinstance(hmc_config, HMCConfig):
+        return hmc_config
+    d = dict(hmc_config or {})
+    return HMCConfig(
+        L_param=d.get("L_param", 10), eps_param=d.get("eps_param", 0.02),
+        L_noise=d.get("L_noise", 10), eps_noise=d.get("eps_noise", 0.02),
+        n_exit=d.get("n_exit", default_n_exit))
+
+
 def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
             biased: bool = False, shuffle: bool = True,
             adaptive_resampling: bool = True,
-            adaptive_rejuvenation: bool = False, verbose: bool = False,
-            check: bool = False):
-    """SMC structure learning with data annealing. n_hmc must be 0 until
-    the gradient kernels are ported (NotImplementedError otherwise)."""
+            adaptive_rejuvenation: bool = False, hmc_config=None,
+            verbose: bool = False, check: bool = False):
+    """SMC structure learning with data annealing (api.jl:212-249). After
+    every MH step the particles that accepted it get n_hmc sweeps of
+    parameter and noise HMC (`hmc_config`: L_param, eps_param, L_noise,
+    eps_noise, n_exit; n_exit defaults to 1). Per-round totals (MH and
+    HMC acceptances, HMC sweeps) are left in `model.round_stats`."""
     n = len(model.ds)
+    model.round_stats = []
     perm = _GLOBAL["rng"].permutation(n) if shuffle else np.arange(n)
     model.particles = smc.run_smc_anneal_data(
         _next_generator(model.device), model._ds_numeric(),
         model._y_numeric(), model.config, model.tables, model.num_particles,
         list(schedule), n_mcmc, n_hmc, dtype=model.dtype,
-        device=model.device, biased=biased, permutation=perm,
+        device=model.device, biased=biased,
+        hmc_cfg=_hmc_config(hmc_config, default_n_exit=1), permutation=perm,
         adaptive_resampling=adaptive_resampling,
         adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
-        check=check)
+        check=check, round_stats=model.round_stats)
     return model
 
 
@@ -325,11 +358,12 @@ def to_dict(model: GPModel) -> dict:
     }
 
 
-def from_dict(d: dict, *, device,
+def from_dict(d: dict, *, device="cuda",
               dtype: Optional[torch.dtype] = None) -> GPModel:
-    """Rebuild a GPModel on `device` from a `to_dict` dict -- this
-    package's or autogp_tpu's (GPModel(::Dict), api.jl:1084-1106). The
-    LMLs are recomputed on the device from the decoded particles."""
+    """Rebuild a GPModel on `device` (the card unless the caller asks for
+    the CPU) from a `to_dict` dict -- this package's or autogp_tpu's
+    (GPModel(::Dict), api.jl:1084-1106). The LMLs are recomputed on the
+    device from the decoded particles."""
     config = GPConfig.from_dict(d["config"])
     ds = _ds_from_jsonable(d["ds"])
     y = np.asarray(d["y"], dtype=np.float64)

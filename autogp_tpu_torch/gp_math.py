@@ -13,8 +13,10 @@ MVN log density and the posterior marginals route their covariance blocks
 and factorizations through ops/cov.py and ops/chol.py, so on a CUDA tensor
 they run the hand-written kernels.
 
-The closed-form VJP of the MVN log density (autogp_tpu/gp_math.py:439-473)
-belongs to the gradient path and is not ported yet.
+The gradient path's plain helpers are here too: `kinv_from_linv` and the
+closed-form cotangent of the MVN log density (autogp_tpu/gp_math.py:
+402-473), which the plain versions of the kinv and tape-backward kernels
+use.
 """
 
 from __future__ import annotations
@@ -201,11 +203,52 @@ def mvn_logpdf_masked(K, x, mask):
     failed factorization gives NaN, never an exception."""
     from autogp_tpu_torch.ops import chol
     P, N, _ = K.shape
-    xm = (x * mask).expand(P, N)
-    d, alpha = chol.chol_solve_diag(K, xm)
+    d, alpha = chol.chol_solve_diag(K, (x * mask).expand(P, N))
+    return mvn_logpdf_from_factor(d, alpha, mask)
+
+
+def mvn_logpdf_from_factor(d, alpha, mask):
+    """[P] masked MVN log densities from diag(L) [P, N] and alpha = L^-1 x
+    [P, N]; every LML route (value, gradient, noise gradient) ends here,
+    so their values agree bit for bit on the same factor."""
     n = torch.sum(mask)
     logdet = 2.0 * torch.sum(torch.log(d) * mask, dim=-1)
     return -0.5 * (n * LOG2PI + logdet + torch.sum(alpha * alpha, dim=-1))
+
+
+def use_blocked_inv(N: int) -> bool:
+    """The noise gradient's closed form applies: N a power of two >= 64
+    (autogp_tpu/gp_math.py:370-371); smaller buckets use autograd."""
+    return N >= 64 and (N & (N - 1)) == 0
+
+
+def kinv_from_linv(Linv):
+    """Lower-only K^-1 = Linv^T Linv from a lower-triangular Linv
+    [P, N, N] (autogp_tpu/gp_math.py:402-436 with lower_only=True): block
+    (bi, bj <= bi) of 128 x 128 (the Cholesky driver's panels) contracts
+    only rows >= bi, and the strictly-upper blocks are 0, which the
+    symmetric tape backward never reads. One block (N <= 128) or a ragged
+    N gives the dense product."""
+    block = 128
+    P, N, _ = Linv.shape
+    if N % block != 0 or N == block:
+        return torch.matmul(Linv.mT, Linv)
+    out = torch.zeros_like(Linv)
+    for i in range(N // block):
+        r0 = i * block
+        R = Linv[:, r0:, :]
+        out[:, r0:r0 + block, :r0 + block] = torch.matmul(
+            R[:, :, r0:r0 + block].mT, R[:, :, :r0 + block])
+    return out
+
+
+def mvn_logpdf_cotangent(beta, Kinv, mask, g):
+    """Cotangent of the masked MVN log density with respect to its gram:
+    0.5 g (beta beta^T - K^-1) * m m^T (autogp_tpu/gp_math.py:452-473).
+    beta [P, N], Kinv [P, N, N] symmetric, mask [N], g [P]."""
+    m2 = mask[:, None] * mask[None, :]
+    return ((0.5 * g)[:, None, None]
+            * (beta[:, :, None] * beta[:, None, :] - Kinv) * m2)
 
 
 # ---------------------------------------------------------------------------

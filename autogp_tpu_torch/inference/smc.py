@@ -6,11 +6,9 @@ ESS falls below the threshold, and rejuvenates with involutive structure
 moves. Growing prefixes are padded to power-of-two buckets with a mask.
 Particle state is a batch of tensor traces on one device:
 node_type [P, M] int64, params [P, M, 3], noise_z [P], log_weights [P],
-lml [P], log_ml_est [], parents [P] int64.
-
-Parameter and noise HMC (autogp_tpu/inference/hmc.py) are not ported:
-they need the gradient kernels (kinv substitution, tape backward), so any
-n_hmc > 0 raises NotImplementedError instead of silently skipping HMC.
+lml [P], log_ml_est [], parents [P] int64. After every MH step the
+particles whose structure move was accepted get parameter and noise HMC
+(inference/hmc.py).
 """
 
 from __future__ import annotations
@@ -26,16 +24,13 @@ import torch
 from autogp_tpu_torch import config as C
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch.inference import check as check_mod
+from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import moves
 
 # Finite stand-in for the cached LML of a particle whose factorization
 # failed (smc.py:45-51): its weight becomes -inf while later weight
 # arithmetic stays NaN-free, and an MH move away from it sees a huge ratio.
 BAD_LML = -1e30
-
-HMC_MISSING = ("n_hmc > 0 needs parameter and noise HMC, which wait for the "
-               "gradient kernels (the kinv substitution kernel and the tape "
-               "backward kernel); run with n_hmc=0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,27 +203,33 @@ def maybe_resample(gen, particles: Particles, ess_threshold):
 
 def rejuvenate_structure(gen, particles: Particles, data: Dataset,
                          cfg: C.GPConfig, tables, n_mcmc: int, n_hmc: int,
-                         biased: bool = False, check: bool = False):
-    """n_mcmc involutive-MH steps on the whole batch.
+                         biased: bool = False,
+                         hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
+                         check: bool = False):
+    """n_mcmc involutive-MH steps on the whole batch; after each, the
+    particles that accepted their structure move get up to n_hmc sweeps
+    of parameter [+ noise] HMC (smc.py:311-442). Noise HMC runs when the
+    config leaves the noise free.
 
     With check=True every step also runs the round-trip checks on the
     post-move state (Gen.metropolis_hastings(check=true)). Returns
-    (particles, n_accepted [P], check_ok [P, 4]: structural validity,
+    (particles, n_accepted [P], n_hmc_sweeps [P], n_hmc_accepted [P]
+    (parameter trajectories), check_ok [P, 4]: structural validity,
     subtree-replace, detach, attach)."""
-    if n_hmc > 0:
-        raise NotImplementedError(HMC_MISSING)
+    infer_noise = cfg.noise is None
     P = particles.n_particles
     dev = particles.noise_z.device
     d = _data(data)
-    nt, pz, lml = particles.node_type, particles.params, particles.lml
+    nt, pz, nz, lml = (particles.node_type, particles.params,
+                       particles.noise_z, particles.lml)
     n_acc = torch.zeros((P,), dtype=torch.int64, device=dev)
+    n_sweeps = torch.zeros_like(n_acc)
+    n_hmc_acc = torch.zeros_like(n_acc)
     ok = torch.ones((P, 4), dtype=torch.bool, device=dev)
     for _ in range(n_mcmc):
-        res = moves.tree_rejuvenation_step(gen, nt, pz, particles.noise_z,
-                                           lml, d, cfg, tables,
-                                           biased=biased)
+        res = moves.tree_rejuvenation_step(gen, nt, pz, nz, lml, d, cfg,
+                                           tables, biased=biased)
         nt, pz, lml = res.node_type, res.params, res.lml
-        n_acc = n_acc + res.accepted.to(torch.int64)
         if check:
             valid = check_mod.trace_structurally_valid(
                 nt, changepoints=cfg.changepoints)
@@ -236,17 +237,25 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
                                           changepoints=cfg.changepoints,
                                           biased=biased)
             ok = ok & torch.cat([valid[:, None], rts], dim=1)
-    return particles.replace(node_type=nt, params=pz, lml=lml), n_acc, ok
+        if n_hmc > 0:
+            pz, nz, lml, acc, sw = hmc_mod.rejuvenate_parameters(
+                gen, nt, pz, nz, lml, d, cfg, tables, n_hmc, hmc_cfg,
+                infer_noise, enabled=res.accepted)
+            n_hmc_acc = n_hmc_acc + acc
+            n_sweeps = n_sweeps + sw
+        n_acc = n_acc + res.accepted.to(torch.int64)
+    return (particles.replace(node_type=nt, params=pz, noise_z=nz, lml=lml),
+            n_acc, n_sweeps, n_hmc_acc, ok)
 
 
 def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
               tables, n_mcmc: int, n_hmc: int, biased: bool,
               allow_resample: bool, ess_threshold: float,
-              adaptive_rejuvenation: bool, check: bool = False):
+              adaptive_rejuvenation: bool,
+              hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
+              check: bool = False):
     """reweight -> maybe_resample -> rejuvenate (inference_smc_anneal_
     data.jl:206-253). Returns (particles, stats)."""
-    if n_hmc > 0:
-        raise NotImplementedError(HMC_MISSING)
     dev = particles.noise_z.device
     particles = reweight(particles, data, cfg, tables)
     resampled = torch.zeros((), dtype=torch.bool, device=dev)
@@ -255,14 +264,17 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
     rejuvenated = (not adaptive_rejuvenation) or bool(resampled)
     P = particles.n_particles
     if rejuvenated:
-        particles, n_acc, check_ok = rejuvenate_structure(
-            gen, particles, data, cfg, tables, n_mcmc, n_hmc, biased,
-            check=check)
+        particles, n_acc, n_sweeps, n_hmc_acc, check_ok = \
+            rejuvenate_structure(gen, particles, data, cfg, tables, n_mcmc,
+                                 n_hmc, biased, hmc_cfg=hmc_cfg, check=check)
     else:
         n_acc = torch.zeros((P,), dtype=torch.int64, device=dev)
+        n_sweeps = torch.zeros_like(n_acc)
+        n_hmc_acc = torch.zeros_like(n_acc)
         check_ok = torch.ones((P, 4), dtype=torch.bool, device=dev)
     return particles, {"resampled": resampled, "rejuvenated": rejuvenated,
-                       "mh_accepted": n_acc, "check_ok": check_ok}
+                       "mh_accepted": n_acc, "hmc_sweeps": n_sweeps,
+                       "hmc_accepted": n_hmc_acc, "check_ok": check_ok}
 
 
 # ---------------------------------------------------------------------------
@@ -301,12 +313,15 @@ def validate_particles(particles: Particles, cfg: C.GPConfig, tables=None,
 def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                         n_particles: int, schedule: Sequence[int], n_mcmc,
                         n_hmc, *, dtype, device, biased: bool = False,
+                        hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
                         permutation: Optional[np.ndarray] = None,
                         adaptive_resampling: bool = True,
                         adaptive_rejuvenation: bool = False,
-                        verbose: bool = False,
-                        check: bool = False) -> Particles:
-    """Anneal over data prefixes ts[perm][:step] for step in schedule."""
+                        verbose: bool = False, check: bool = False,
+                        round_stats: Optional[list] = None) -> Particles:
+    """Anneal over data prefixes ts[perm][:step] for step in schedule.
+    With a list `round_stats`, one dict of totals per round is appended
+    to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted."""
     n = len(ts)
     ts = np.asarray(ts, np.float64)
     xs = np.asarray(xs, np.float64)
@@ -325,8 +340,6 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
     n_hmc = [n_hmc] * len(schedule) if np.isscalar(n_hmc) else list(n_hmc)
     if len(n_mcmc) != len(schedule) or len(n_hmc) != len(schedule):
         raise ValueError("n_mcmc / n_hmc lists must match the schedule")
-    if any(h > 0 for h in n_hmc):
-        raise NotImplementedError(HMC_MISSING)
 
     # Initialize from the prior on empty data (:180-190).
     data0 = make_dataset(ts, xs, n=0, pad_to=bucket_size(1), dtype=dtype,
@@ -341,7 +354,12 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
         particles, stats = smc_round(
             gen, particles, data, cfg, tables, int(n_mcmc[i]),
             int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
-            adaptive_rejuvenation, check=check)
+            adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check)
+        if round_stats is not None:
+            round_stats.append({
+                "step": step, "resampled": bool(stats["resampled"]),
+                **{k: int(stats[k].sum()) for k in (
+                    "mh_accepted", "hmc_sweeps", "hmc_accepted")}})
         if verbose:
             w = normalized_weights(particles.log_weights).cpu().numpy()
             ess = float(effective_sample_size(particles.log_weights))
@@ -352,6 +370,7 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             print(f"Particle ESS: {ess / n_particles}")
             print(f"resampled {bool(stats['resampled'])}")
             print(f"accepted MCMC[{acc.sum()}/{n_particles * n_mcmc[i]}]")
+            print(f"HMC sweeps {int(stats['hmc_sweeps'].sum())}")
         if check:
             ok = stats["check_ok"]
             assert ok[:, 0].all(), "per-move structural trace validity"

@@ -2,8 +2,10 @@
 
 Port of autogp_tpu/model.py (Model.jl of the reference): whitened
 parameters mapped to constrained space (:75-95), the tree prior's density
-(:155-188) and its level-vectorised sampler (:195-256), the value-only
-log marginal likelihood (:263-293), `joint_score` and `generate`.
+(:155-188) and its level-vectorised sampler (:195-256), the log marginal
+likelihood with its gradient route (:263-293), the noise-HMC pieces
+`assemble_K0` and the analytic noise gradient (:296-405), `joint_score`
+and `generate`.
 
 Every function takes the particle axis first: node_type [P, M] int64,
 params_z [P, M, 3], noise_z [P]. The data (ts, xs, mask, each [N]) is
@@ -22,7 +24,7 @@ import torch
 
 from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
-from autogp_tpu_torch.ops import cov
+from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -254,15 +256,83 @@ def lml(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
         tables: PriorTables):
     """[P] log marginal likelihoods of (ts, xs, mask) under each particle.
 
-    The value path of model.lml's fused route (cov_pallas_vjp.py:857-865
+    Value only (model.lml's fused route, cov_pallas_vjp.py:857-865
     primal): kernel 1 assembles the padded-identity gram with noise,
     lower triangle only, and kernel 2's blocked driver returns diag(L) and
-    alpha. A failed factorization gives NaN."""
+    alpha. When params_z or noise_z requires grad (and grad mode is on)
+    the same value comes from `cov_vjp.LmlTapeFused`, whose backward runs
+    the kinv and tape-backward kernels; the two values are bitwise equal.
+    A failed factorization gives NaN."""
     params_t = transform_params(node_type, params_z, tables)
     noise = transform_noise(noise_z, config)
+    if torch.is_grad_enabled() and (params_t.requires_grad
+                                    or noise.requires_grad):
+        return cov_vjp.LmlTapeFused.apply(params_t, noise, node_type, ts, xs,
+                                          mask, tables.depth_cap)
     K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
                      tables.depth_cap, gram=True, lower_only=True)
     return gp_math.mvn_logpdf_masked(K, xs, mask)
+
+
+def assemble_K0(node_type, params_z, ts, mask, config: C.GPConfig,
+                tables: PriorTables):
+    """[P, N, N] noise-free padded-identity grams, lower triangle only
+    (autogp_tpu/model.py:296-319). Noise HMC only moves the active
+    diagonal, K(nz) = K0 + noise(nz) diag(mask), so K0 is assembled once
+    per trajectory and each leapfrog pays the factorization only."""
+    params_t = transform_params(node_type, params_z, tables)
+    zero = torch.zeros(node_type.shape[0], dtype=params_t.dtype,
+                       device=params_t.device)
+    return cov.cov_tape(node_type, params_t, zero, ts, ts, mask, mask,
+                        tables.depth_cap, gram=True, lower_only=True)
+
+
+def _value_and_noise_grad(Km, noise, xs, mask, config: C.GPConfig):
+    """(lml, d lml / d noise_z) of padded-identity grams Km [P, N, N] with
+    the noise on their active diagonal. With beta = Km^-1 x,
+        d lml / d noise = -1/2 (tr_active(Km^-1) - beta^T beta),
+        tr_active(Km^-1) = ||L^-1||_F^2 - (N - n)
+    (padded columns of L^-1 are unit vectors), then the chain rule through
+    the log-normal noise transform (autogp_tpu/model.py:322-405)."""
+    P, N, _ = Km.shape
+    diag, alpha, wd, L = chol.chol_solve_strips(Km,
+                                                (xs * mask).expand(P, N))
+    beta, fro2 = kinv.linv_stats_wd(L, alpha, wd)
+    val = gp_math.mvn_logpdf_from_factor(diag, alpha, mask)
+    n = torch.sum(mask)
+    tr_active = fro2 - (N - n)
+    dlml_dnoise = -0.5 * (tr_active - torch.sum(beta * beta, dim=-1))
+    p = config.prior["wildcard"]
+    dnoise_dz = p["sigma"] * (noise - C.MODEL_JITTER)
+    return val, dlml_dnoise * dnoise_dz
+
+
+def lml_value_and_noise_grad_from_K0(K0, noise_z, xs, mask,
+                                     config: C.GPConfig):
+    """([P] lml, [P] d lml / d noise_z) from the noise-free grams of
+    `assemble_K0` (autogp_tpu/model.py:322-353)."""
+    noise = transform_noise(noise_z, config)
+    Km = K0 + torch.diag_embed(noise[:, None] * mask)
+    return _value_and_noise_grad(Km, noise, xs, mask, config)
+
+
+def lml_value_and_noise_grad(node_type, params_z, noise_z, ts, xs, mask,
+                             config: C.GPConfig, tables: PriorTables):
+    """([P] lml, [P] d lml / d noise_z) without reverse mode through the
+    covariance when the closed form applies (gp_math.use_blocked_inv);
+    otherwise autograd of `lml` in noise_z (autogp_tpu/model.py:356-405)."""
+    if not gp_math.use_blocked_inv(ts.shape[0]):
+        with torch.enable_grad():
+            nz = noise_z.detach().requires_grad_(True)
+            val = lml(node_type, params_z.detach(), nz, ts, xs, mask, config,
+                      tables)
+            (grad,) = torch.autograd.grad(val.sum(), nz)
+        return val.detach(), grad
+    params_t = transform_params(node_type, params_z, tables)
+    noise = transform_noise(noise_z, config)
+    Km = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
+                      tables.depth_cap, gram=True, lower_only=True)
+    return _value_and_noise_grad(Km, noise, xs, mask, config)
 
 
 def joint_score(node_type, params_z, noise_z, ts, xs, mask,

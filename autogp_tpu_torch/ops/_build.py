@@ -40,6 +40,13 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _P],
     # A, batch stride, row stride, L out, Linv out, P, B, stream
     "autogp_chol_panel": [_P, _LL, _LL, _P, _P, _I, _I, _P],
+    # L, wd, alpha, X scratch, beta, fro_part scratch, fro, kinv (or
+    # NULL), P, N, stream
+    "autogp_kinv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # tape slot, type, lpos, rpos, length, params, ts, mask, kinv, beta,
+    # g, partial scratch, out, P, M, N, stream
+    "autogp_cov_tape_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -15,9 +15,12 @@ update A22 - L21 L21^T and the forward solve alpha = L^-1 x, as the JAX
 package did in XLA. Only the lower triangle of the input is read. B =
 min(N, 128), so every SMC bucket (N = 32 ... 1024) runs through the kernel.
 
-Two entries: `chol_solve_diag` (diag(L), alpha) for the LML value path, as
-`cholesky_solve_diag_batched` (:413); `chol_solve` (L, alpha) for predict's
-train factor.
+Three entries, one driver: `chol_solve_diag` (diag(L), alpha) for the LML
+value path, as `cholesky_solve_diag_batched` (:413); `chol_solve` (L,
+alpha) for predict's train factor; `chol_solve_strips` (diag, alpha, Wd,
+L) for the LML gradient and noise HMC, which covers both
+`cholesky_solve_strips_batched` (:424) and `cholesky_solve_wd_batched`
+(:403).
 """
 
 from __future__ import annotations
@@ -76,9 +79,12 @@ def _launch(A):
     return L, W
 
 
-def _driver(K, x, want_l: bool):
+def _driver(K, x, want_l: bool, want_wd: bool = False):
     """Right-looking blocked factorization of K [P, N, N] with the solve
-    alpha = L^-1 x riding the panel loop. Returns (L or diag(L), alpha)."""
+    alpha = L^-1 x riding the panel loop. Returns (L or None, diag(L),
+    alpha, Wd or None); Wd [P, nb, B, B] stacks kernel 2's per-panel
+    Lkk^-1 blocks. Every entry runs this same code, so diag and alpha are
+    bitwise the same whichever outputs are kept."""
     P, N, _ = K.shape
     B = min(N, BLOCK)
     if N % B != 0:
@@ -88,17 +94,18 @@ def _driver(K, x, want_l: bool):
     nb = N // B
     A = K
     xcur = x
-    diags, alphas = [], []
+    diags, alphas, wds = [], [], []
     L = torch.zeros_like(K) if want_l else None
     for k in range(nb):
         r0 = k * B
         Lkk, Winv = panel_factor(A[:, :B, :B])
         a_k = torch.matmul(Winv, xcur[:, :B, None])[..., 0]
         alphas.append(a_k)
+        diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
+        if want_wd:
+            wds.append(Winv)
         if want_l:
             L[:, r0:r0 + B, r0:r0 + B] = Lkk
-        else:
-            diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
         if k + 1 < nb:
             L21 = torch.matmul(A[:, B:, :B], Winv.mT)       # [P, m-B, B]
             # Trailing update; only its lower triangle is read later.
@@ -106,17 +113,34 @@ def _driver(K, x, want_l: bool):
             xcur = xcur[:, B:] - torch.matmul(L21, a_k[..., None])[..., 0]
             if want_l:
                 L[:, r0 + B:, r0:r0 + B] = L21
-    alpha = torch.cat(alphas, dim=1)
-    return (L if want_l else torch.cat(diags, dim=1)), alpha
+    wd = torch.stack(wds, dim=1) if want_wd else None
+    return L, torch.cat(diags, dim=1), torch.cat(alphas, dim=1), wd
 
 
 def chol_solve_diag(K, x):
     """(diag(L) [P, N], alpha = L^-1 x [P, N]) of a batch of SPD K
     [P, N, N] (lower triangle read): the LML value pair. NaN where the
     factorization fails."""
-    return _driver(K, x, want_l=False)
+    _, d, alpha, _ = _driver(K, x, want_l=False)
+    return d, alpha
 
 
 def chol_solve(K, x):
     """(L [P, N, N], alpha [P, N]) of a batch of SPD K (lower read)."""
-    return _driver(K, x, want_l=True)
+    L, _, alpha, _ = _driver(K, x, want_l=True)
+    return L, alpha
+
+
+def chol_solve_strips(K, x):
+    """(diag(L), alpha, Wd [P, nb, B, B], L): the factorization of the
+    gradient path and of noise HMC (the `cholesky_solve_strips_batched`
+    and `cholesky_solve_wd_batched` contracts, chol_pallas.py:403-439).
+    Wd stacks the per-panel diagonal-block inverses Lkk^-1 that kernel 2
+    writes anyway, for the kinv kernel.
+
+    The JAX package handed the factor over as nb block-column strips only
+    to avoid [N, N] concatenations on the TPU. This driver writes L in
+    place, so the "strips" here are that in-place L [P, N, N] (zeros above
+    the diagonal); diag and alpha are bitwise `chol_solve_diag`'s."""
+    L, d, alpha, wd = _driver(K, x, want_l=True, want_wd=True)
+    return d, alpha, wd, L

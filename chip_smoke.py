@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SMC path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SMC path, HMC included, once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -9,7 +9,8 @@ Phases (each prints one line; any failure exits non-zero, nothing falls
 back to the CPU):
 
   1. device  -- a CUDA card, its name and power limit from nvidia-smi;
-  2. build   -- both hand-written kernels from autogp_tpu_torch/csrc;
+     the port imported, with neither jax nor autogp_tpu in sys.modules;
+  2. build   -- the hand-written kernels from autogp_tpu_torch/csrc;
   3. kernel 1 (covariance assembly) against its plain PyTorch version at
      [64, 1024, 1024] f32 on 64 prior trees (ChangePoints on), lower_only
      on and off, on a masked bucket; gate: per-particle normwise relative
@@ -19,16 +20,36 @@ back to the CPU):
      (relative error of diag, alpha, L <= 1e-4), NaN on a non-PD input,
      and the batched LML of the 64 prior particles at N = 1024 against the
      plain f64 path (relative error <= 1e-3 where the f64 value is finite);
-  5. end to end: config 4 with n_hmc = 0 -- GPModel(n_particles=64) on a
-     synthetic N = 1024 series, fit_smc(linear_schedule(1024, .25),
-     n_mcmc=10, n_hmc=0), predict at 32 future points with quantiles --
-     with launch counters reset just before, finiteness, validate_particles
-     with round trips, and a float64 CPU re-evaluation of the top particles'
-     LMLs and predictions.
+  5. kinv (kernels 3-4) at [64, 1024, 1024] on the phase-4 SPD batches:
+     kinv_beta_strips and linv_stats_wd against the plain version in f64
+     on the same f32 factor; gates: normwise relative <= 1e-4 for the
+     lower K^-1 and beta, <= 1e-5 for ||L^-1||_F^2, strictly-upper blocks
+     exactly 0;
+  6. bwd (kernel 5) at [64, 1024, 1024] on the 64 prior trees of phase 3,
+     K^-1 and beta from the kinv kernel, g = 1: against its plain version
+     in f64 on the same inputs, per particle max|err| / max|ref| <= 1e-3
+     for the parameter and the noise gradients; two runs bitwise equal;
+  7. grad -- LmlTapeFused on the 64 prior particles at N = 1024: the value
+     under grad torch.equal to the value-only LML; the z-space gradient
+     against float64 CPU autograd through the plain dense path, normwise
+     relative <= 1e-2 on particles whose f64 gram has condition number
+     < 1e5 (the rest reported); a step along the gradient raises every
+     particle's LML that stays finite; the K0 noise gradient likewise;
+  8. end to end: config 4 -- GPModel(n_particles=64) on a synthetic
+     N = 1024 series, fit_smc(linear_schedule(1024, .25), n_mcmc=10,
+     n_hmc=10), predict at 32 future points with quantiles -- after an
+     n_hmc=0 warm-up fit, with launch counters reset just before; every
+     kernel entry must launch (kinv's two entries, linv_stats_wd and
+     kinv_beta_strips, counted apart); finiteness, validate_particles with
+     round trips,
+     and a float64 CPU re-evaluation of the top particles' LMLs and
+     predictions.
 
 Before the last line it prints the card line and one JSON object with each
-kernel's launches on the main path, its error and its time beside its plain
-version's (CUDA events); the last line is the device JSON.
+kernel's launches on the main path, its error, its time beside its plain
+version's and a library call's (CUDA events), and its bound (the larger of
+the bytes it must move over 3.35 TB/s and its operations over the card's
+peak for their type); the last line is the device JSON.
 """
 
 import json
@@ -42,6 +63,22 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, P_MAIN = 1024, 64
 
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
+# HBM3 bandwidth. Special functions (exp, log, sin, reciprocal): 16
+# results per clock per SM on sm_90 (NVIDIA's CUDA C++ documentation,
+# arithmetic instruction throughput table) x 132 SMs x 1.98 GHz.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_SFU = 16 * 132 * 1.98e9
+
+# FP32 operations and special-function calls per matrix element for one
+# tape instruction of each node type (1..9), forward and backward, read
+# off the formulas of csrc/cov_tape.cu and csrc/cov_tape_bwd.cu.
+FWD_COST = {1: (0, 0), 2: (4, 0), 3: (5, 1), 4: (4, 3), 5: (6, 2),
+            6: (1, 0), 7: (1, 0), 8: (10, 4), 9: (1, 0)}
+BWD_COST = {1: (1, 0), 2: (10, 0), 3: (8, 0), 4: (12, 2), 5: (16, 2),
+            6: (0, 0), 7: (2, 0), 8: (22, 4), 9: (1, 0)}
+
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
@@ -50,6 +87,26 @@ def fail(msg):
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def bound(flops, sfu, nbytes):
+    """(bound_ms, bound_by): the larger of the operation time (FP32 and
+    special-function pipes, whichever is slower) and the byte time."""
+    op_ms = max(flops / PEAK_F32, sfu / PEAK_SFU) * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    return ((op_ms, "operations") if op_ms >= byte_ms
+            else (byte_ms, "bytes"))
+
+
+def tape_cost(node_type, depth_cap, table):
+    """Per-particle (flops, sfu) per element of running its tape once."""
+    from autogp_tpu_torch.ops import cov
+    _, ttype, _, _, tlen = cov.build_tape(node_type, depth_cap)
+    out = []
+    for types, n in zip(ttype.tolist(), tlen.tolist()):
+        out.append(tuple(sum(table[t][k] for t in types[:n])
+                         for k in (0, 1)))
+    return out
 
 
 def cuda_ms(torch, fn, reps):
@@ -67,10 +124,11 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel_name, reps):
-    """Mean device milliseconds per launch of the CUDA kernel whose name
-    contains `kernel_name`, over `reps` calls of fn (torch.profiler/CUPTI):
-    the kernel alone, without its wrapper's host work and glue ops."""
+def device_ms(torch, fn, names, reps):
+    """Mean device milliseconds per call of fn spent in the CUDA kernels
+    whose names contain one of `names`, over `reps` calls
+    (torch.profiler/CUPTI): the kernels alone, without their wrapper's
+    host work and glue ops."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -78,18 +136,22 @@ def device_ms(torch, fn, kernel_name, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel_name in e.key]
-    n = sum(e.count for e in evs)
-    if n == 0:
-        fail(f"profiler saw no {kernel_name} launches")
-    return sum(e.self_device_time_total for e in evs) / n / 1e3
+    evs = [e for e in prof.key_averages()
+           if any(n in e.key for n in names)]
+    if not evs:
+        fail(f"profiler saw no launches of {names}")
+    return sum(e.self_device_time_total for e in evs) / reps / 1e3
 
 
 def normwise_rel(a, b):
     """Per-particle max|a - b| / max|b|, then the max over particles."""
+    return float(per_particle_rel(a, b).max())
+
+
+def per_particle_rel(a, b):
     num = (a.double() - b.double()).abs().flatten(1).amax(1)
     den = b.double().abs().flatten(1).amax(1)
-    return float((num / den).max())
+    return num / den
 
 
 def main():
@@ -115,9 +177,12 @@ def main():
     from autogp_tpu_torch import config as C
     from autogp_tpu_torch import model as M
     from autogp_tpu_torch.inference import smc
-    from autogp_tpu_torch.ops import _build, chol, cov
-    if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
-        fail("the port imported jax")
+    from autogp_tpu_torch.ops import _build, chol, cov, cov_vjp, kinv
+    foreign = sorted(m for m in sys.modules
+                     if m in ("jax", "autogp_tpu")
+                     or m.startswith(("jax.", "autogp_tpu.")))
+    if foreign:
+        fail(f"the port imported {foreign[:5]}")
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -147,7 +212,8 @@ def main():
     noise_z = torch.randn(P_MAIN, generator=gen, device=dev)
     pt = M.transform_params(nt, pz, tab)
     noise = M.transform_noise(noise_z, cfg)
-    ts, mask = grid(N_MAIN, 768)
+    n_act = 768
+    ts, mask = grid(N_MAIN, n_act)
     cov_err = 0.0
     for lower in (False, True):
         K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, gram=True,
@@ -170,15 +236,23 @@ def main():
                                 True)
         times[N] = (
             cuda_ms(torch, run, 20),
-            device_ms(torch, run, "cov_tape_kernel", 10),
+            device_ms(torch, run, ("cov_tape_kernel",), 10),
             cuda_ms(torch, lambda: cov.cov_tape_plain(
                 nt, pt, noise, tsn, tsn, mkn, mkn, D, True, True), 3))
-    cov_ms, _, cov_plain_ms = times[N_MAIN]
+    cov_ms, cov_dev_ms, cov_plain_ms = times[N_MAIN]
+    # Needed work: the tape on every active lower element; every element
+    # of the [P, N, N] output written once.
+    n_low = n_act * (n_act + 1) // 2
+    fwd = tape_cost(nt, D, FWD_COST)
+    cov_bound = bound(sum(c[0] for c in fwd) * n_low,
+                      sum(c[1] for c in fwd) * n_low,
+                      P_MAIN * N_MAIN * N_MAIN * 4)
     phase("kernel1", f"cov_tape ok: max normwise rel err <= 1e-5, max abs "
           f"err {cov_err:.3e}; ms (wrapper, kernel alone, plain) at "
           f"[64, N, N] lower_only by N: " + ", ".join(
               f"{N}: ({a:.4f}, {b:.4f}, {c:.4f})"
-              for N, (a, b, c) in times.items()))
+              for N, (a, b, c) in times.items())
+          + f"; bound at N=1024 {cov_bound[0]:.4f} ms ({cov_bound[1]})")
 
     # ---- 4. kernel 2 --------------------------------------------------
     def spd(P, N):
@@ -222,6 +296,7 @@ def main():
                     + 2 * torch.log(torch.diagonal(Lr, dim1=1, dim2=2)).sum(1)
                     + (ar * ar).sum(1))
     lml_r = torch.where(info > 0, float("nan"), lml_r)
+    del Kr, Lr
     fin = torch.isfinite(lml_r)
     both = fin & torch.isfinite(lml_k)
     rel = ((lml_k.double() - lml_r).abs() / lml_r.abs())[both]
@@ -233,9 +308,15 @@ def main():
     panel_in = torch.tril(spd(P_MAIN, 128)[0]).float()
     p_ms = cuda_ms(torch, lambda: chol.panel_factor(panel_in), 20)
     p_dev_ms = device_ms(torch, lambda: chol.panel_factor(panel_in),
-                         "chol_panel_kernel", 10)
+                         ("chol_panel_kernel",), 10)
     p_plain_ms = cuda_ms(torch, lambda: chol.panel_factor_plain(panel_in),
                          20)
+    p_lib_ms = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(panel_in), 20)
+    B = chol.BLOCK
+    # Cholesky and triangular inverse: B^3 / 3 flops each; B square roots
+    # and B reciprocals; read A, write L and L^-1.
+    chol_bound = bound(P_MAIN * 2 * B ** 3 / 3, P_MAIN * 2 * B,
+                       3 * P_MAIN * B * B * 4)
     drv = {}
     for N in (32, 256, 512, 1024):
         K64, x64 = spd(P_MAIN, N)
@@ -252,12 +333,222 @@ def main():
           f"{float(rel.max()):.3e} (particle {worst}, {int(both.sum())} "
           f"compared, {n_nan} NaN in f32 where f64 finite, "
           f"{int((~fin).sum())} not PD in f64); panel [64,128,128] ms "
-          f"(wrapper, kernel alone, plain) ({p_ms:.4f}, {p_dev_ms:.4f}, "
-          f"{p_plain_ms:.4f}); driver diag+alpha"
+          f"(wrapper, kernel alone, plain, cholesky_ex alone) ({p_ms:.4f},"
+          f" {p_dev_ms:.4f}, {p_plain_ms:.4f}, {p_lib_ms:.4f}), bound "
+          f"{chol_bound[0]:.4f} ms ({chol_bound[1]}); driver diag+alpha"
           f" vs cholesky_ex+solve_triangular ms by N: " + ", ".join(
               f"{N}: ({a:.4f}, {b:.4f})" for N, (a, b) in drv.items()))
 
-    # ---- 5. end to end: config 4, n_hmc = 0 ---------------------------
+    # ---- 5. kinv (kernels 3-4) ----------------------------------------
+    K64, x64 = spd(P_MAIN, N_MAIN)
+    Kf, xf = torch.tril(K64).float(), x64.float()
+    del K64
+    d_s, a_s, wd_s, L_s = chol.chol_solve_strips(Kf, xf)
+    d_v, a_v = chol.chol_solve_diag(Kf, xf)
+    if not (torch.equal(d_s, d_v) and torch.equal(a_s, a_v)):
+        fail("chol_solve_strips and chol_solve_diag disagree bitwise")
+    Ki, beta_k, fro_k = kinv.kinv_beta_strips(a_s, wd_s, L_s)
+    beta_s, fro_s = kinv.linv_stats_wd(L_s, a_s, wd_s)
+    torch.cuda.synchronize()
+    Kir, beta_r, fro_r = kinv.kinv_beta_plain(L_s.double(), a_s.double())
+    kinv_errs = (normwise_rel(torch.tril(Ki), torch.tril(Kir)),
+                 normwise_rel(beta_k, beta_r),
+                 float(((fro_k.double() - fro_r) / fro_r).abs().max()))
+    stats_abs = max(float((beta_s.double() - beta_r).abs().max()),
+                    float((fro_s.double() - fro_r).abs().max()))
+    kinv_abs = max(stats_abs, float(
+        (torch.tril(Ki).double() - torch.tril(Kir)).abs().max()))
+    del Kir
+    Bk = min(N_MAIN, chol.BLOCK)
+    blk = torch.arange(N_MAIN, device=dev) // Bk
+    upper_blocks = blk[None, :] > blk[:, None]
+    if not (kinv_errs[0] <= 1e-4 and kinv_errs[1] <= 1e-4
+            and kinv_errs[2] <= 1e-5):
+        fail(f"kinv vs f64 plain (K^-1, beta, fro): {kinv_errs}")
+    if bool((Ki[:, upper_blocks] != 0).any()):
+        fail("kinv: a strictly-upper block of K^-1 is not 0")
+    if not (torch.equal(beta_s, beta_k) and torch.equal(fro_s, fro_k)):
+        fail("linv_stats_wd and kinv_beta_strips disagree on beta / fro")
+    kinv_names = ("linv_kernel", "kinv_lower_kernel", "fro_sum_kernel")
+    kv_ms = cuda_ms(torch, lambda: kinv.kinv_beta_strips(a_s, wd_s, L_s), 10)
+    kv_dev_ms = device_ms(torch, lambda: kinv.kinv_beta_strips(
+        a_s, wd_s, L_s), kinv_names, 5)
+    st_ms = cuda_ms(torch, lambda: kinv.linv_stats_wd(L_s, a_s, wd_s), 10)
+    st_dev_ms = device_ms(torch, lambda: kinv.linv_stats_wd(
+        L_s, a_s, wd_s), kinv_names, 5)
+    kv_plain_ms = cuda_ms(torch, lambda: kinv.kinv_beta_plain(L_s, a_s), 3)
+    st_plain_ms = cuda_ms(torch, lambda: kinv.linv_stats_plain(L_s, a_s), 3)
+
+    def lib_kinv():
+        Kx = torch.cholesky_inverse(L_s)
+        return Kx, torch.matmul(Kx, xf[..., None])
+    kv_lib_ms = cuda_ms(torch, lib_kinv, 5)
+    NN = P_MAIN * N_MAIN * N_MAIN
+    # Triangular inverse and L^-T L^-1: N^3 / 3 flops each (LAPACK trtri,
+    # lauum); read L, Wd, alpha once, write K^-1, beta, fro once.
+    kinv_bound = bound(2 * P_MAIN * N_MAIN ** 3 / 3, 0,
+                       4 * (2 * NN + P_MAIN * N_MAIN * Bk + 3 * P_MAIN
+                            * N_MAIN))
+    stats_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
+                        4 * (NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN * N_MAIN))
+    phase("kinv", f"kinv_beta_strips and linv_stats_wd ok at [64, 1024, "
+          f"1024]: vs f64 plain on the same f32 factor, normwise rel K^-1 "
+          f"{kinv_errs[0]:.3e}, beta {kinv_errs[1]:.3e}, fro rel "
+          f"{kinv_errs[2]:.3e} (gates 1e-4, 1e-4, 1e-5), max abs K^-1 err "
+          f"{kinv_abs:.3e} (beta and fro {stats_abs:.3e}); strictly-upper "
+          f"blocks 0; stats bitwise equal "
+          f"across the two entries; ms kinv_beta_strips (wrapper, kernels "
+          f"alone, plain, cholesky_inverse+matvec) ({kv_ms:.4f}, "
+          f"{kv_dev_ms:.4f}, {kv_plain_ms:.4f}, {kv_lib_ms:.4f}), bound "
+          f"{kinv_bound[0]:.4f} ms ({kinv_bound[1]}); linv_stats_wd "
+          f"(wrapper, kernels alone, plain) ({st_ms:.4f}, {st_dev_ms:.4f}, "
+          f"{st_plain_ms:.4f}), bound "
+          f"{stats_bound[0]:.4f} ms ({stats_bound[1]})")
+    del Ki, L_s, wd_s, Kf
+
+    # ---- 6. bwd (kernel 5) --------------------------------------------
+    Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
+    _, a_c, wd_c, L_c = chol.chol_solve_strips(Kc, xs_main.expand(P_MAIN,
+                                                                  -1))
+    del Kc
+    Ki_c, beta_c, _ = kinv.kinv_beta_strips(a_c, wd_c, L_c)
+    del L_c, wd_c
+    g1 = torch.ones(P_MAIN, device=dev)
+    pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
+    pb2, nb2 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
+    torch.cuda.synchronize()
+    if not (torch.equal(pb, pb2) and torch.equal(nb, nb2)):
+        fail("kernel 5: two runs on the same inputs differ")
+
+    def plain_bwd(dtype, chunk):
+        outs = []
+        for s in range(0, P_MAIN, chunk):
+            sl = slice(s, s + chunk)
+            outs.append(cov_vjp.cov_tape_bwd_plain(
+                nt[sl], pt[sl].to(dtype), ts.to(dtype), mask.to(dtype),
+                Ki_c[sl].to(dtype), beta_c[sl].to(dtype), g1[sl].to(dtype),
+                D))
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+    pr, nr = plain_bwd(f64, 4)
+    ok_b = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    if int(ok_b.sum()) < P_MAIN // 2:
+        fail(f"kernel 5: only {int(ok_b.sum())} particles with a finite "
+             f"f64 reference")
+    e_p = per_particle_rel(pb, pr)[ok_b]
+    e_n = ((nb.double() - nr).abs() / nr.abs())[ok_b]
+    bwd_abs = float((pb.double() - pr).abs()[ok_b].max())
+    if not (float(e_p.max()) <= 1e-3 and float(e_n.max()) <= 1e-3):
+        fail(f"kernel 5 vs f64 plain: worst pbar {float(e_p.max()):.3e}, "
+             f"nbar {float(e_n.max()):.3e}")
+    bw_ms = cuda_ms(torch, lambda: cov_vjp.cov_tape_bwd(
+        nt, pt, ts, mask, Ki_c, beta_c, g1, D), 5)
+    bw_dev_ms = device_ms(torch, lambda: cov_vjp.cov_tape_bwd(
+        nt, pt, ts, mask, Ki_c, beta_c, g1, D),
+        ("cov_tape_bwd_kernel", "cov_tape_bwd_reduce"), 3)
+    t0 = time.perf_counter()
+    plain_bwd(f32, 8)
+    torch.cuda.synchronize()
+    bw_plain_ms = (time.perf_counter() - t0) * 1e3
+    # Needed work: forward and backward tape plus the cotangent (6 flops)
+    # on every active lower element; read K^-1 on the active lower
+    # triangle and the active beta once (padded elements are masked out).
+    bwd_c = [(f[0] + b[0] + 6, f[1] + b[1]) for f, b in zip(
+        fwd, tape_cost(nt, D, BWD_COST))]
+    bwd_bound = bound(sum(c[0] for c in bwd_c) * n_low,
+                      sum(c[1] for c in bwd_c) * n_low,
+                      4 * P_MAIN * (n_low + n_act))
+    phase("bwd", f"cov_tape_bwd ok at [64, 1024, 1024] ({int(ok_b.sum())} "
+          f"particles with a finite f64 reference): per-particle max|err| "
+          f"/ max|ref| worst pbar {float(e_p.max()):.3e} (median "
+          f"{float(e_p.median()):.3e}), nbar {float(e_n.max()):.3e} (gate "
+          f"1e-3), max abs pbar err {bwd_abs:.3e}; two runs bitwise equal;"
+          f" ms (wrapper, kernels alone, plain f32 in chunks of 8) "
+          f"({bw_ms:.4f}, {bw_dev_ms:.4f}, {bw_plain_ms:.4f}), bound "
+          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+    del Ki_c, pr
+
+    # ---- 7. grad: LmlTapeFused and the K0 noise gradient ----------------
+    pzg = pz.clone().requires_grad_(True)
+    nzg = noise_z.clone().requires_grad_(True)
+    v_g = M.lml(nt, pzg, nzg, ts, xs_main, mask, cfg, tab)
+    gp, gn = torch.autograd.grad(v_g.sum(), (pzg, nzg))
+    torch.cuda.synchronize()
+    if not torch.equal(v_g.detach(), lml_k):
+        fail("LmlTapeFused value under grad differs from the value path")
+    torch.set_num_threads(os.cpu_count() or 1)
+    tab64 = M.prior_tables(cfg, "cpu", f64)
+    ts64, m64 = ts.double().cpu(), mask.double().cpu()
+    xm64 = (xs_main.double().cpu() * m64)
+    vr, gpr, gnr, conds = [], [], [], []
+    for s in range(0, P_MAIN, 2):
+        sl = slice(s, s + 2)
+        ntc = nt[sl].cpu()
+        pzc = pz[sl].double().cpu().requires_grad_(True)
+        nzc = noise_z[sl].double().cpu().requires_grad_(True)
+        Kd = cov.cov_tape_plain(ntc, M.transform_params(ntc, pzc, tab64),
+                                M.transform_noise(nzc, cfg), ts64, ts64, m64,
+                                m64, D, True, False)
+        Ld, info = torch.linalg.cholesky_ex(Kd)
+        ad = torch.linalg.solve_triangular(
+            Ld, xm64.expand(2, -1)[..., None], upper=False)[..., 0]
+        v = -0.5 * (m64.sum() * math.log(2 * math.pi)
+                    + 2 * (torch.log(torch.diagonal(Ld, dim1=1, dim2=2))
+                           * m64).sum(1) + (ad * ad).sum(1))
+        g_p, g_n = torch.autograd.grad(v.sum(), (pzc, nzc))
+        bad = info > 0
+        vr.append(torch.where(bad, float("nan"), v.detach()))
+        gpr.append(g_p)
+        gnr.append(g_n)
+        ev = torch.linalg.eigvalsh(Kd.detach())
+        conds.append(torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0],
+                                 float("inf")))
+        del Kd, Ld
+    vr, gpr, gnr, conds = (torch.cat(x) for x in (vr, gpr, gnr, conds))
+    g_k = torch.cat([gp.flatten(1), gn[:, None]], 1).double().cpu()
+    g_r = torch.cat([gpr.flatten(1), gnr[:, None]], 1)
+    fin_g = (torch.isfinite(vr) & torch.isfinite(g_r).all(1)
+             & torch.isfinite(g_k).all(1))
+    e_g = per_particle_rel(g_k, g_r)
+    well = fin_g & (conds < 1e5)
+    if int(well.sum()) < 8:
+        fail(f"grad: only {int(well.sum())} well-conditioned particles")
+    if not float(e_g[well].max()) <= 1e-2:
+        fail(f"grad vs f64 CPU autograd: worst {float(e_g[well].max()):.3e}"
+             f" on a particle with cond < 1e5")
+    rest = fin_g & ~well
+    # A step along the gradient must raise every LML that stays finite.
+    with torch.no_grad():
+        gnorm = torch.sqrt((gp * gp).sum((1, 2)) + gn * gn).clamp_min(1e-9)
+        p2 = pz + 1e-3 * gp / gnorm[:, None, None]
+        n2 = noise_z + 1e-3 * gn / gnorm
+        v1 = M.lml(nt, p2, n2, ts, xs_main, mask, cfg, tab)
+    up_ok = torch.isfinite(v1) & torch.isfinite(lml_k)
+    if not bool((v1[up_ok] >= lml_k[up_ok] - 1e-3).all()):
+        fail("grad: a step along the gradient lowered an LML")
+    K0 = M.assemble_K0(nt, pz, ts, mask, cfg, tab)
+    v_n, g_n0 = M.lml_value_and_noise_grad_from_K0(K0, noise_z, xs_main,
+                                                   mask, cfg)
+    del K0
+    e_nv = ((v_n.double().cpu() - vr).abs() / vr.abs())
+    e_ng = ((g_n0.double().cpu() - gnr).abs() / gnr.abs())
+    ok_n = well & torch.isfinite(v_n.cpu()) & torch.isfinite(g_n0.cpu())
+    if not (float(e_nv[ok_n].max()) <= 1e-3
+            and float(e_ng[ok_n].max()) <= 1e-2):
+        fail(f"K0 noise gradient vs f64: value {float(e_nv[ok_n].max()):.3e}"
+             f", grad {float(e_ng[ok_n].max()):.3e}")
+    phase("grad", f"LmlTapeFused value under grad torch.equal to the value "
+          f"path; z-space gradient vs f64 CPU autograd: worst normwise rel "
+          f"{float(e_g[well].max()):.3e} (median "
+          f"{float(e_g[well].median()):.3e}) on {int(well.sum())} particles with cond < 1e5 (gate 1e-2); "
+          f"{int(rest.sum())} more finite with cond >= 1e5: worst "
+          f"{float(e_g[rest].max()) if rest.any() else 0.0:.3e}; "
+          f"{int((~fin_g).sum())} not finite; step along the gradient "
+          f"raised all {int(up_ok.sum())} finite LMLs; K0 noise gradient on "
+          f"{int(ok_n.sum())}: value rel {float(e_nv[ok_n].max()):.3e}, "
+          f"grad rel {float(e_ng[ok_n].max()):.3e}")
+
+    # ---- 8. end to end: config 4 --------------------------------------
     n = N_MAIN
     t_days = np.arange(n, dtype=np.float64)
     y = (0.02 * t_days + 3.0 * np.sin(2 * np.pi * t_days / 52.0)
@@ -266,7 +557,7 @@ def main():
     ds_future = np.arange(n, n + 32, dtype=np.float64)
     sched = A.Schedule.linear_schedule(n, 0.25)
     A.seed(0)
-    warm = A.GPModel(t_days, y, n_particles=P_MAIN, device="cuda")
+    warm = A.GPModel(t_days, y, n_particles=P_MAIN)
     A.fit_smc(warm, schedule=sched, n_mcmc=1, n_hmc=0)
     A.predict(warm, ds_future, quantiles=[.1, .5, .9])
     torch.cuda.synchronize()
@@ -274,20 +565,29 @@ def main():
 
     A.seed(1)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    cov.launches = 0
-    chol.launches = 0
+    counters = {"cov_tape": (cov, "launches"),
+                "chol_panel": (chol, "launches"),
+                "linv_stats_wd": (kinv, "stats_launches"),
+                "kinv_beta_strips": (kinv, "strips_launches"),
+                "cov_tape_bwd": (cov_vjp, "launches")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     torch.cuda.synchronize()
     ev[0].record()
-    model = A.GPModel(t_days, y, n_particles=P_MAIN, device="cuda")
-    A.fit_smc(model, schedule=sched, n_mcmc=10, n_hmc=0)
+    model = A.GPModel(t_days, y, n_particles=P_MAIN)
+    A.fit_smc(model, schedule=sched, n_mcmc=10, n_hmc=10)
     ev[1].record()
     df = A.predict(model, ds_future, quantiles=[.1, .5, .9])
     ev[2].record()
     torch.cuda.synchronize()
-    launches = {"cov_tape": cov.launches, "chol_panel": chol.launches}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     fit_ms, pred_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path never launched: {launches}")
+    rs = model.round_stats
+    sweeps = sum(r["hmc_sweeps"] for r in rs)
+    if sweeps <= 0:
+        fail("the config-4 fit ran no HMC sweep")
     cols = ["y_mean", "y_0.1", "y_0.5", "y_0.9"]
     if len(df) != P_MAIN * 32 or not np.isfinite(df[cols].to_numpy()).all():
         fail("predict output not finite or of the wrong shape")
@@ -319,25 +619,42 @@ def main():
         fail(f"f32 card vs f64 CPU on the top particles: LML rel "
              f"{lml_rel:.3e}, predict err / y-range {pred_err:.3e}")
     phase("e2e", f"fit_smc(N={n}, P={P_MAIN}, schedule={sched}, n_mcmc=10,"
-          f" n_hmc=0) {fit_ms:.1f} ms, predict(32, 3 quantiles) "
-          f"{pred_ms:.1f} ms (CUDA events, after a warm-up fit); launches "
-          f"{launches}; best LML {float(p.lml.max()):.3f}, ESS "
+          f" n_hmc=10) {fit_ms:.1f} ms, predict(32, 3 quantiles) "
+          f"{pred_ms:.1f} ms (CUDA events, after an n_hmc=0 warm-up fit); "
+          f"launches {launches}; per round (step, MH accepted, HMC sweeps, "
+          f"HMC parameter accepts) " + ", ".join(
+              f"({r['step']}, {r['mh_accepted']}, {r['hmc_sweeps']}, "
+              f"{r['hmc_accepted']})" for r in rs)
+          + f"; total HMC sweeps {sweeps}; best LML "
+          f"{float(p.lml.max()):.3f}, ESS "
           f"{model.effective_sample_size():.2f}, log-ML est "
           f"{model.log_marginal_likelihood_estimate():.3f}; top-8 vs f64 "
           f"CPU: LML rel {lml_rel:.3e}, predict err / y-range "
           f"{pred_err:.3e}; validate_particles ok")
 
+    def entry(name, src, replaces, err, ms, dev_ms, plain_ms, bnd, lib_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"autogp_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib_ms}
+
     kernels = [
-        {"name": "cov_tape", "route": "cuda",
-         "source": "autogp_tpu_torch/csrc/cov_tape.cu",
-         "replaces": "autogp_tpu/ops/cov_pallas.py:252",
-         "launches": launches["cov_tape"], "max_abs_err": cov_err,
-         "ms": cov_ms, "plain_ms": cov_plain_ms},
-        {"name": "chol_panel", "route": "cuda",
-         "source": "autogp_tpu_torch/csrc/chol_panel.cu",
-         "replaces": "autogp_tpu/ops/chol_pallas.py:46",
-         "launches": launches["chol_panel"], "max_abs_err": chol_err,
-         "ms": p_ms, "plain_ms": p_plain_ms},
+        entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",
+              cov_err, cov_ms, cov_dev_ms, cov_plain_ms, cov_bound, None),
+        entry("chol_panel", "chol_panel.cu",
+              "autogp_tpu/ops/chol_pallas.py:46", chol_err, p_ms, p_dev_ms,
+              p_plain_ms, chol_bound, p_lib_ms),
+        entry("linv_stats_wd", "kinv.cu",
+              "autogp_tpu/ops/kinv_pallas.py:73", stats_abs, st_ms,
+              st_dev_ms, st_plain_ms, stats_bound, None),
+        entry("kinv_beta_strips", "kinv.cu",
+              "autogp_tpu/ops/kinv_pallas.py:73", kinv_abs, kv_ms, kv_dev_ms,
+              kv_plain_ms, kinv_bound, kv_lib_ms),
+        entry("cov_tape_bwd", "cov_tape_bwd.cu",
+              "autogp_tpu/ops/cov_pallas_vjp.py:275", bwd_abs, bw_ms,
+              bw_dev_ms, bw_plain_ms, bwd_bound, None),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

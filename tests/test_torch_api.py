@@ -16,6 +16,17 @@ from autogp_tpu_torch.inference import smc
 F64 = torch.float64
 
 
+def assert_trees_close(a: dict, b: dict, rtol: float):
+    """Two kernel trees in the to_dict form: same node types and fields,
+    parameters within `rtol`."""
+    assert a["type"] == b["type"] and a.keys() == b.keys()
+    for k, v in a.items():
+        if isinstance(v, dict):
+            assert_trees_close(v, b[k], rtol)
+        elif k != "type":
+            np.testing.assert_allclose(v, b[k], rtol=rtol)
+
+
 @pytest.fixture(autouse=True)
 def _torch_cpu_f64():
     torch.set_num_threads(1)
@@ -90,8 +101,11 @@ def test_port_model_carries_back_to_jax(jax_model):
     pm = autogp_tpu_torch.from_dict(autogp_tpu.to_dict(jax_model),
                                     device="cpu", dtype=F64)
     back = autogp_tpu.from_dict(autogp_tpu_torch.to_dict(pm))
+    # The two packages' Node classes differ: kernels cross as dicts.
     for a, b in zip(back.covariance_kernels(), pm.covariance_kernels()):
-        assert a.isapprox(b, rtol=1e-12)
+        assert_trees_close(autogp_tpu.api._kernel_to_dict(a),
+                           autogp_tpu_torch.api._kernel_to_dict(b),
+                           rtol=1e-12)
     np.testing.assert_allclose(np.asarray(back.particles.lml),
                                pm.particles.lml.numpy(), rtol=1e-9)
     np.testing.assert_allclose(back.particle_weights(),
@@ -109,3 +123,41 @@ def test_device_is_explicit():
     with pytest.raises(RuntimeError, match="cuda"):
         autogp_tpu_torch.GPModel(np.arange(8.0), np.arange(8.0),
                                  n_particles=2, device="cuda")
+
+
+def test_device_defaults_to_the_card():
+    """GPModel and from_dict default to device="cuda": without a card
+    they raise and never build anything on the CPU. (Skips where a card
+    is present.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        autogp_tpu_torch.GPModel(np.arange(8.0), np.arange(8.0),
+                                 n_particles=2)
+    m = autogp_tpu_torch.GPModel(np.arange(8.0), np.sin(np.arange(8.0)),
+                                 n_particles=2, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        autogp_tpu_torch.from_dict(autogp_tpu_torch.to_dict(m))
+
+
+def test_smc_callback_sees_the_observed_prefix():
+    """callbacks.make_smc_callback (the port's copy) hands the callback an
+    intermediate GPModel over the observed prefix, with the fitted
+    model's transforms and particles."""
+    from autogp_tpu_torch import callbacks
+    ds = np.linspace(0, 1, 8)
+    m = autogp_tpu_torch.GPModel(ds, np.sin(4 * ds), n_particles=3,
+                                 device="cpu")
+    seen = {}
+
+    def fn(**kw):
+        seen.update(kw)
+    cb = callbacks.make_smc_callback(fn, m)
+    perm = np.arange(8)[::-1]
+    cb(particles=m.particles, permutation=perm, step=5, schedule=[5, 8],
+       rejuvenated=False, resampled=True, elapsed=0.0, verbose=False)
+    sub = seen["model"]
+    np.testing.assert_array_equal(sub.ds, ds[perm][:5])
+    np.testing.assert_array_equal(seen["ds_next"], ds[perm][5:])
+    assert sub.particles is m.particles and sub.device == m.device
+    assert sub.ds_transform == m.ds_transform

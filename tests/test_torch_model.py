@@ -17,7 +17,9 @@ import torch
 
 from autogp_tpu import config as C
 from autogp_tpu import model as JM
+from autogp_tpu import api as JA
 from autogp_tpu import tree as JT
+from autogp_tpu_torch import api as TA
 from autogp_tpu_torch import model as TM
 from autogp_tpu_torch import tree as TT
 
@@ -61,6 +63,17 @@ def _heap(spec, Mn):
 
     rec(spec, 0)
     return nt, pz
+
+
+def assert_trees_close(a: dict, b: dict, rtol: float):
+    """Two kernel trees in the to_dict form: same node types and fields,
+    parameters within `rtol`."""
+    assert a["type"] == b["type"] and a.keys() == b.keys()
+    for k, v in a.items():
+        if isinstance(v, dict):
+            assert_trees_close(v, b[k], rtol)
+        elif k != "type":
+            np.testing.assert_allclose(v, b[k], rtol=rtol)
 
 
 def _jax_prior_trees(cfg, n, seed):
@@ -179,12 +192,14 @@ def test_tree_codec_matches_jax():
         assert int(TT.tree_depth(tnt)[i]) == int(JT.tree_depth(nt[i]))
         np.testing.assert_array_equal(TT.param_mask(tnt)[i].numpy(),
                                       np.asarray(JT.param_mask(nt[i])))
+    # The two packages' Node classes differ: trees cross as dicts.
     for i in range(3):
         node = TT.tensor_to_node(nt[i], pz[i], cfg)
-        assert node.isapprox(JT.tensor_to_node(nt[i], pz[i], cfg),
-                             rtol=1e-12)
+        jnode = JT.tensor_to_node(nt[i], pz[i], cfg)
+        assert_trees_close(TA._kernel_to_dict(node),
+                           JA._kernel_to_dict(jnode), rtol=1e-12)
         nt2, pz2 = TT.node_to_tensor(node, cfg)
-        jnt, jpz = JT.node_to_tensor(node, cfg)
+        jnt, jpz = JT.node_to_tensor(jnode, cfg)
         np.testing.assert_array_equal(nt2, jnt)
         np.testing.assert_allclose(pz2, jpz, rtol=1e-12, atol=1e-12)
 

@@ -1,6 +1,6 @@
 """SMC with data annealing in the port (CPU, float64): ports of the JAX
-package's reweight and resampling tests, a small port-only fit, and the
-n_hmc > 0 guard."""
+package's reweight and resampling tests, and small port-only fits without
+and with HMC."""
 
 import warnings
 
@@ -124,17 +124,23 @@ def test_small_fit_end_to_end():
     assert np.isclose(m.particle_weights().sum(), 1.0)
 
 
-def test_hmc_raises_not_implemented():
-    cfg, tab = _setup(max_depth=3)
-    ts = np.linspace(0, 1, 8)
-    m = A.GPModel(ts, np.sin(ts), n_particles=4, config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="gradient kernels"):
-        A.fit_smc(m, schedule=[4, 8], n_mcmc=2, n_hmc=1)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="gradient kernels"):
-        smc.run_smc_anneal_data(gen, ts, np.sin(ts), cfg, tab, 4, [4, 8],
-                                n_mcmc=2, n_hmc=1, dtype=F64, device="cpu")
-    parts = smc.initialize(gen, 4, _ds(ts, np.sin(ts), 0), cfg, tab)
-    with pytest.raises(NotImplementedError, match="gradient kernels"):
-        smc.rejuvenate_structure(gen, parts, _ds(ts, np.sin(ts), 8), cfg,
-                                 tab, n_mcmc=1, n_hmc=2)
+def test_hmc_fit_end_to_end():
+    """fit_smc with n_hmc=2 through the API (N=32, P=6, depth 3, two
+    rounds): HMC ran (sweeps in round_stats), the cached LMLs are finite and equal fresh ones (rtol 1e-9,
+    float64), and validate_particles with round trips passes."""
+    cfg, _ = _setup(max_depth=3)
+    rng = np.random.default_rng(2)
+    n = 32
+    ts = np.linspace(0, 1, n)
+    xs = np.sin(2 * np.pi * 2 * ts) + 0.1 * rng.standard_normal(n)
+    A.seed(3)
+    m = A.GPModel(ts, xs, n_particles=6, config=cfg, device="cpu")
+    A.fit_smc(m, schedule=[16, 32], n_mcmc=3, n_hmc=2,
+              hmc_config={"L_param": 4, "L_noise": 4})
+    assert [r["step"] for r in m.round_stats] == [16, 32]
+    assert sum(r["hmc_sweeps"] for r in m.round_stats) > 0
+    parts = m.particles
+    assert torch.isfinite(parts.lml).all()
+    fresh = smc.lml_all(parts, m._dataset(), cfg, m.tables)
+    np.testing.assert_allclose(parts.lml.numpy(), fresh.numpy(), rtol=1e-9)
+    smc.validate_particles(parts, cfg, tables=m.tables)
