@@ -1,23 +1,28 @@
-"""User-facing API, the SMC subset (port of autogp_tpu/api.py).
+"""User-facing API: SMC, MCMC and streaming (port of autogp_tpu/api.py).
 
 `GPModel` holds a batch of tensor-trace particles on one device (the card
 unless the caller asks for the CPU) plus the data transforms; `fit_smc`
-runs SMC with data annealing, parameter and noise HMC included; `predict`
-returns per-particle
-predictive means and quantiles in the original data space; `to_dict` /
-`from_dict` use the dict format of autogp_tpu.api.to_dict (:916-993), so a
-model fitted by the JAX package can be carried over and back.
+runs SMC with data annealing, parameter and noise HMC included, with an
+optional per-round callback; `mcmc_structure`, `fit_mcmc` and
+`mcmc_parameters` rejuvenate the particles on the data they hold;
+`add_data`, `remove_data` and `maybe_resample` are the streaming entry
+points; `predict` returns per-particle predictive means and quantiles in
+the original data space, `predict_mvn` the mixture with full covariances,
+`predict_quantile` the mixture's marginal quantiles and `predict_proba`
+the per-particle log density of held-out values; `to_dict` / `from_dict`
+use the dict format of autogp_tpu.api.to_dict (:916-993), so a model
+fitted by the JAX package can be carried over and back.
 
-Not ported yet: greedy search, MCMC-only fits, add_data/remove_data,
-predict_proba/predict_mvn/predict_sum, decompose and friends, fit_smc's
-callback_fn, depth annealing and the mesh.
+Not ported yet: greedy search, predict_sum, decompose and friends, depth
+annealing and the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
-from typing import List, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -31,6 +36,9 @@ from autogp_tpu_torch import model as M
 from autogp_tpu_torch import transforms as TR
 from autogp_tpu_torch import tree as T
 from autogp_tpu_torch.config import GPConfig
+from autogp_tpu_torch.distributions import (MixtureMvNormal, MvNormal,
+                                            mixture_marginal_quantile)
+from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import smc
 from autogp_tpu_torch.inference.hmc import HMCConfig
 
@@ -110,10 +118,15 @@ class GPModel:
                     ds_transform, y_transform) -> "GPModel":
         """A model over (ds, y) holding `particles` as they are, with the
         given transforms (the intermediate models of callbacks.py)."""
-        m = cls(ds, y, n_particles=particles.n_particles, config=config,
-                device=particles.params.device, dtype=particles.params.dtype,
-                _defer_init=True)
+        m = cls.__new__(cls)   # no transforms fitted: ds may be empty
+        m.device = particles.params.device
+        m.dtype = particles.params.dtype
+        m.config = config
+        m.tables = M.prior_tables(config, m.device, m.dtype)
+        m.ds = np.asarray(ds)
+        m.y = np.asarray(y, dtype=np.float64)
         m.ds_transform, m.y_transform = ds_transform, y_transform
+        m.round_stats = []
         m.particles = particles
         return m
 
@@ -233,12 +246,15 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
             biased: bool = False, shuffle: bool = True,
             adaptive_resampling: bool = True,
             adaptive_rejuvenation: bool = False, hmc_config=None,
-            verbose: bool = False, check: bool = False):
+            verbose: bool = False, check: bool = False,
+            callback_fn: Optional[Callable] = None):
     """SMC structure learning with data annealing (api.jl:212-249). After
     every MH step the particles that accepted it get n_hmc sweeps of
     parameter and noise HMC (`hmc_config`: L_param, eps_param, L_noise,
     eps_noise, n_exit; n_exit defaults to 1). Per-round totals (MH and
-    HMC acceptances, HMC sweeps) are left in `model.round_stats`."""
+    HMC acceptances, HMC sweeps) are left in `model.round_stats`.
+    `callback_fn` (see callbacks.make_smc_callback) is called with
+    keywords at step 0 and after every round."""
     n = len(model.ds)
     model.round_stats = []
     perm = _GLOBAL["rng"].permutation(n) if shuffle else np.arange(n)
@@ -250,8 +266,103 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
         hmc_cfg=_hmc_config(hmc_config, default_n_exit=1), permutation=perm,
         adaptive_resampling=adaptive_resampling,
         adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
-        check=check, round_stats=model.round_stats)
+        check=check, round_stats=model.round_stats, callback_fn=callback_fn)
     return model
+
+
+# ---------------------------------------------------------------------------
+# fit_mcmc / mcmc_structure / mcmc_parameters (api.jl:280-420)
+# ---------------------------------------------------------------------------
+
+def mcmc_structure(model: GPModel, n_mcmc: int, n_hmc: int,
+                   biased: bool = False, hmc_config=None,
+                   verbose: bool = False, check: bool = False):
+    """n_mcmc involutive MCMC steps on all particles, each followed by
+    n_hmc HMC sweeps on the particles that accepted it (n_exit defaults
+    to 2). Returns the per-particle count of accepted moves [P]."""
+    hc = _hmc_config(hmc_config, default_n_exit=2)
+    particles, n_acc, _, _, ok = smc.rejuvenate_structure(
+        _next_generator(model.device), model.particles, model._dataset(),
+        model.config, model.tables, n_mcmc, n_hmc, biased, hmc_cfg=hc,
+        check=check)
+    model.particles = particles
+    if check:
+        assert bool(ok.all()), "per-move involution round trip failed"
+        smc.validate_particles(particles, model.config, tables=model.tables,
+                               gen=_next_generator(model.device))
+    return n_acc.cpu().numpy()
+
+
+def fit_mcmc(model: GPModel, n_mcmc: int, n_hmc: int, biased: bool = False,
+             hmc_config=None, verbose: bool = False, check: bool = False,
+             callback_fn: Optional[Callable] = None):
+    """Pure involutive-MCMC engine (api.jl:280-307): n_mcmc single steps;
+    `callback_fn(model=, step=, elapsed=)` after each step in which some
+    particle accepted a move."""
+    elapsed = 0.0
+    for step in range(1, n_mcmc + 1):
+        t0 = time.time()
+        n_acc = mcmc_structure(model, 1, n_hmc, biased=biased,
+                               hmc_config=_hmc_config(hmc_config, 2),
+                               verbose=verbose, check=check)
+        elapsed += time.time() - t0
+        if callback_fn is not None and (n_acc > 0).any():
+            callback_fn(model=model, step=step, elapsed=elapsed)
+    return model
+
+
+def mcmc_parameters(model: GPModel, n_hmc: int, hmc_config=None,
+                    verbose: bool = False, check: bool = False):
+    """n_hmc HMC sweeps on all particles (api.jl:385-393; n_exit defaults
+    to n_hmc). Returns the per-particle count of accepted parameter
+    trajectories [P]."""
+    hc = _hmc_config(hmc_config, default_n_exit=n_hmc)
+    p = model.particles
+    data = model._dataset()
+    pz, nz, lml, n_acc, _ = hmc_mod.rejuvenate_parameters(
+        _next_generator(model.device), p.node_type, p.params, p.noise_z,
+        p.lml, (data.ts, data.xs, data.mask), model.config, model.tables,
+        n_hmc, hc, model.config.noise is None)
+    model.particles = p.replace(params=pz, noise_z=nz, lml=lml)
+    return n_acc.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# add_data / remove_data / maybe_resample (api.jl:426-479)
+# ---------------------------------------------------------------------------
+
+def add_data(model: GPModel, ds, y):
+    """Incorporate new observations via one SMC reweight (api.jl:426-443)."""
+    model.ds = np.concatenate([model.ds, np.asarray(ds)])
+    model.y = np.concatenate([model.y, np.asarray(y, dtype=np.float64)])
+    _reweight_current(model)
+    return model
+
+
+def remove_data(model: GPModel, ds):
+    """Remove the observations at time points ds (api.jl:449-468)."""
+    ds = np.asarray(ds)
+    sel = np.isin(model.ds, ds)
+    if not sel.any():
+        raise ValueError(f"No such time points {ds}")
+    model.ds = model.ds[~sel]
+    model.y = model.y[~sel]
+    _reweight_current(model)
+    return model
+
+
+def _reweight_current(model: GPModel):
+    """Reweight the particles on the data the model holds now."""
+    model.particles = smc.reweight(model.particles, model._dataset(),
+                                   model.config, model.tables)
+
+
+def maybe_resample(model: GPModel, ess_threshold: float) -> bool:
+    """Multinomial resampling if the ESS is below `ess_threshold`
+    (api.jl:472-479). Returns whether it resampled."""
+    model.particles, did = smc.maybe_resample(
+        _next_generator(model.device), model.particles, ess_threshold)
+    return bool(did)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +414,74 @@ def predict(model: GPModel, ds, quantiles: Sequence[float] = (),
                 _norm.ppf(q, loc=mus[i], scale=stds[i]))
         frames.append(pd.DataFrame(rec))
     return pd.concat(frames, ignore_index=True)
+
+
+def _posterior_terms(model: GPModel, ds_pred):
+    """What the joint-Cholesky posteriors take: (node_type, params_t,
+    noise, ts, xs, mask, ts_pred, depth_cap)."""
+    data = model._dataset()
+    p = model.particles
+    tsp = torch.as_tensor(model._ds_numeric(ds_pred), dtype=model.dtype,
+                          device=model.device)
+    return (p.node_type, M.transform_params(p.node_type, p.params,
+                                            model.tables),
+            M.transform_noise(p.noise_z, model.config), data.ts, data.xs,
+            data.mask, tsp, model.tables.depth_cap)
+
+
+def predict_mvn(model: GPModel, ds, noise_pred: Optional[float] = None
+                ) -> MixtureMvNormal:
+    """Posterior predictive mixture in the original data space, one
+    component with its full covariance per particle (api.jl:482-545)."""
+    *terms, depth_cap = _posterior_terms(model, ds)
+    np_pred = (None if noise_pred is None
+               else torch.full_like(model.particles.noise_z,
+                                    float(noise_pred)))
+    mus, covs = gp_math.posterior_mvn_masked(*terms, depth_cap,
+                                             noise_pred=np_pred)
+    mus = mus.cpu().numpy().astype(np.float64)
+    covs = covs.cpu().numpy().astype(np.float64)
+    comps = [MvNormal(*model.y_transform.unapply_mean_var(mus[i], covs[i]))
+             for i in range(model.num_particles)]
+    return MixtureMvNormal(comps, model.particle_weights())
+
+
+def predict_quantile(model: GPModel, ds, q: float,
+                     noise_pred: Optional[float] = None, tol: float = 1e-5,
+                     max_iter: int = 10 ** 6):
+    """Quantile q of the mixture's marginals at ds, by bisection of the
+    mixture CDF (api.jl:547-596). Only marginal moments enter, so it runs
+    on `predict`'s per-particle (mu, std) and the cached train factor."""
+    if not (0 < q < 1):
+        raise ValueError("Quantile must be in (0,1).")
+    mus, stds = _posterior_summary_all(model, ds, noise_pred)
+    mean_o, var_o = model.y_transform.unapply_mean_var(mus, stds ** 2)
+    return mixture_marginal_quantile(model.particle_weights(), mean_o,
+                                     np.sqrt(var_o), q, tol=tol,
+                                     max_iter=max_iter)
+
+
+def predict_proba(model: GPModel, ds, y) -> pd.DataFrame:
+    """Predictive log density of y at ds under each particle
+    (api.jl:686-699), as columns particle, weight, logp. For the affine
+    y_transform the data-space density is the model-space one plus
+    len(y) log|slope|, so only P scalars leave the device."""
+    y = np.asarray(y, dtype=np.float64)
+    n = model.num_particles
+    if len(y) == 0:
+        logps = np.zeros(n)
+    elif isinstance(model.y_transform, TR.LinearTransform):
+        ym = torch.as_tensor(model.y_transform.apply(y), dtype=model.dtype,
+                             device=model.device)
+        *terms, depth_cap = _posterior_terms(model, ds)
+        lp = gp_math.posterior_logpdf_masked(*terms, ym, depth_cap)
+        logps = (lp.cpu().numpy().astype(np.float64)
+                 + len(y) * np.log(abs(model.y_transform.slope)))
+    else:
+        dist = predict_mvn(model, ds)
+        logps = np.array([c.logpdf(y) for c in dist.components])
+    return pd.DataFrame({"particle": np.arange(1, n + 1),
+                         "weight": model.particle_weights(), "logp": logps})
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,299 @@
+// Leaf, operator and derivative formulas of the kernel-expression trees,
+// shared by the covariance assembly kernels (cov_tape.cu, cov_slot.cu) and
+// their backward kernels (cov_tape_bwd.cu, cov_slot_bwd.cu).
+//
+// They are the guarded formulas of the reference (GP.jl:135-517;
+// autogp_tpu/ops/cov_pallas.py:46-133, cov_pallas_vjp.py:56-255):
+// GammaExponential's safe log, ChangePoint's sigmoid (tanh is never used)
+// and a true division pi / p. Two operation orders are kept, one last bit
+// apart, so that each kernel stays bitwise what its comparison needs:
+//
+// - `leaf_value` / `op_value`, used by the assembly kernels, follow the
+//   plain PyTorch version (gp_math.eval_cov), whose values the LML is held
+//   to;
+// - `ref_leaf_value` / `ref_op_value`, used by the backward kernels' forward
+//   sweep, follow the reference's backward kernels, whose derivative
+//   formulas recover exponents from the stored value.
+//
+// Build without --use_fast_math: expf/sinf/logf must stay accurate to about
+// one ulp.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace autogp {
+
+constexpr int kTile = 32;        // tile edge of every covariance kernel
+constexpr int kMaxDepth = 8;     // value stack bound (depth_cap <= 8)
+constexpr int kMaxSlots = 255;   // 2^8 - 1 heap slots
+
+// Node-type codes: autogp_tpu_torch/config.py.
+constexpr int CONSTANT = 1, LINEAR = 2, SQUARED_EXPONENTIAL = 3,
+              GAMMA_EXPONENTIAL = 4, PERIODIC = 5, PLUS = 6, TIMES = 7,
+              CHANGEPOINT = 8, WHITE_NOISE = 9;
+constexpr float kCpScale = 1e-3f;  // CHANGEPOINT_SCALE
+constexpr float kPi = 3.14159265358979323846f;
+
+__device__ __forceinline__ bool is_op(int t) {
+  return t >= PLUS && t <= CHANGEPOINT;
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// ---------------------------------------------------------------------------
+// Assembly kernels: the plain version's operation order.
+// ---------------------------------------------------------------------------
+
+// Value of a leaf of type t with parameters p[0..2] at (t1, t2).
+__device__ __forceinline__ float leaf_value(int t, const float* p, float t1,
+                                            float t2) {
+  const float dt = t1 - t2;
+  const float adt = fabsf(dt);
+  switch (t) {
+    case CONSTANT:
+      return p[0];
+    case WHITE_NOISE:
+      return (dt == 0.0f) ? p[0] : 0.0f;
+    case LINEAR: {
+      const float c = p[0];
+      return p[1] + p[2] * (t1 - c) * (t2 - c);
+    }
+    case SQUARED_EXPONENTIAL: {
+      const float l = p[0];
+      return p[1] * expf(-0.5f * (dt * dt) / (l * l));
+    }
+    case GAMMA_EXPONENTIAL: {
+      const float l = p[0], g = p[1];
+      const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
+      const float powg = (adt == 0.0f) ? 0.0f : expf(g * logf(safe));
+      return p[2] * expf(-powg);
+    }
+    case PERIODIC: {
+      const float l = p[0];
+      const float freq = kPi / p[1];
+      const float s = sinf(freq * adt);
+      return p[2] * expf((-2.0f / (l * l)) * s * s);
+    }
+    default:
+      return 0.0f;
+  }
+}
+
+// Value of an operator of type t over its children's values.
+__device__ __forceinline__ float op_value(int t, const float* p, float left,
+                                          float right, float t1, float t2) {
+  switch (t) {
+    case PLUS:
+      return left + right;
+    case TIMES:
+      return left * right;
+    default: {  // CHANGEPOINT
+      const float loc = p[0];
+      // sigmoid(2 (loc - t) / scale), in the plain version's order: the
+      // argument reaches ~2e3, so its rounding matters near loc.
+      const float s1 = sigmoidf(2.0f * (loc - t1) / kCpScale);
+      const float s2 = sigmoidf(2.0f * (loc - t2) / kCpScale);
+      return s1 * left * s2 + (1.0f - s1) * right * (1.0f - s2);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward kernels: the reference backward's operation order.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One matrix element's times, as the backward sweeps use them.
+struct Elem {
+  float t1, t2, dt, adt;
+  __device__ __forceinline__ Elem(float a, float b)
+      : t1(a), t2(b), dt(a - b), adt(fabsf(a - b)) {}
+};
+
+__device__ __forceinline__ float ref_leaf_value(int t, const float* pr,
+                                                const Elem& e) {
+  switch (t) {
+    case CONSTANT:
+      return pr[0];
+    case WHITE_NOISE:
+      return (e.dt == 0.0f) ? pr[0] : 0.0f;
+    case LINEAR: {
+      const float c = pr[0];
+      return pr[1] + pr[2] * ((e.t1 - c) * (e.t2 - c));
+    }
+    case SQUARED_EXPONENTIAL: {
+      const float l = pr[0];
+      return pr[1] * expf((-0.5f / (l * l)) * (e.dt * e.dt));
+    }
+    case GAMMA_EXPONENTIAL: {
+      const float l = pr[0], ga = pr[1];
+      const float safe = fmaxf((e.adt == 0.0f) ? 1.0f : e.adt / l, 1e-30f);
+      const float powg = (e.adt == 0.0f) ? 0.0f : expf(ga * logf(safe));
+      return pr[2] * expf(-powg);
+    }
+    case PERIODIC: {
+      const float l = pr[0];
+      const float freq = kPi / pr[1];
+      const float sn = sinf(freq * e.adt);
+      return pr[2] * expf((-2.0f / (l * l)) * sn * sn);
+    }
+    default:
+      return 0.0f;
+  }
+}
+
+__device__ __forceinline__ float ref_op_value(int t, const float* pr,
+                                              float vl, float vr,
+                                              const Elem& e) {
+  switch (t) {
+    case PLUS:
+      return vl + vr;
+    case TIMES:
+      return vl * vr;
+    default: {  // CHANGEPOINT
+      const float loc = pr[0];
+      const float inv = 2.0f / kCpScale;
+      const float s1 = sigmoidf((loc - e.t1) * inv);
+      const float s2 = sigmoidf((loc - e.t2) * inv);
+      return s1 * vl * s2 + (1.0f - s1) * vr * (1.0f - s2);
+    }
+  }
+}
+
+// Reverse step of an operator with adjoint a: its children's adjoints
+// (al, ar) and, for a ChangePoint, the location's gradient term through
+// acc(index, term). `base` = 3 * slot.
+template <class Acc>
+__device__ __forceinline__ void ref_op_adjoint(int t, const float* pr,
+                                               float vl, float vr, double a,
+                                               const Elem& e, int base,
+                                               double& al, double& ar,
+                                               Acc&& acc) {
+  switch (t) {
+    case PLUS:
+      al = a;
+      ar = a;
+      break;
+    case TIMES:
+      al = a * (double)vr;
+      ar = a * (double)vl;
+      break;
+    default: {  // CHANGEPOINT
+      const float loc = pr[0];
+      const float inv = 2.0f / kCpScale;
+      const float s1 = sigmoidf((loc - e.t1) * inv);
+      const float s2 = sigmoidf((loc - e.t2) * inv);
+      const float ds1 = s1 * (1.0f - s1) * inv;
+      const float ds2 = s2 * (1.0f - s2) * inv;
+      const float dloc = ds1 * (s2 * vl - (1.0f - s2) * vr)
+                         + ds2 * (s1 * vl - (1.0f - s1) * vr);
+      acc(base, a * (double)dloc);
+      al = a * (double)s1 * (double)s2;
+      ar = a * (double)(1.0f - s1) * (double)(1.0f - s2);
+      break;
+    }
+  }
+}
+
+// Gradient terms of a leaf with stored value v and adjoint a, through
+// acc(index, term). Exponential-family leaves recover their exponent from
+// v with a clamped log instead of recomputing it.
+template <class Acc>
+__device__ __forceinline__ void ref_leaf_grad(int t, const float* pr, float v,
+                                              double a, const Elem& e,
+                                              int base, Acc&& acc) {
+  const float t1 = e.t1, t2 = e.t2, dt = e.dt, adt = e.adt;
+  switch (t) {
+    case CONSTANT:
+      acc(base, a);
+      break;
+    case WHITE_NOISE:
+      acc(base, (dt == 0.0f) ? a : 0.0);
+      break;
+    case LINEAR: {
+      const float c = pr[0], amp = pr[2];
+      acc(base, a * (double)((-amp) * (t1 + t2 - 2.0f * c)));
+      acc(base + 1, a);
+      acc(base + 2, a * (double)((t1 - c) * (t2 - c)));
+      break;
+    }
+    case SQUARED_EXPONENTIAL: {
+      const float l = pr[0], amp = pr[1];
+      acc(base, a * (double)(v * (dt * dt) / (l * l * l)));
+      acc(base + 1, a * (double)(v / amp));
+      break;
+    }
+    case GAMMA_EXPONENTIAL: {
+      const float l = pr[0], ga = pr[1], amp = pr[2];
+      const float e_safe = fmaxf(v / amp, 1e-38f);
+      const float u = (adt == 0.0f) ? 0.0f : -logf(e_safe);
+      const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
+      const float logs = (adt == 0.0f) ? 0.0f : logf(safe);
+      acc(base, a * (double)(v * ga * u / l));
+      acc(base + 1, a * (double)(v * (-u) * logs));
+      acc(base + 2, a * (double)(v / amp));
+      break;
+    }
+    case PERIODIC: {
+      const float l = pr[0], per = pr[1], amp = pr[2];
+      const float e_safe = fmaxf(v / amp, 1e-38f);
+      const float sn2 = (-0.5f * l * l) * logf(e_safe);
+      const float freq = kPi / per;
+      const float sncs = 0.5f * sinf(2.0f * freq * adt);
+      acc(base, a * (double)(v * (4.0f * sn2) / (l * l * l)));
+      acc(base + 1, a * (double)(v * (4.0f / (l * l)) * sncs
+                                 * (kPi * adt / (per * per))));
+      acc(base + 2, a * (double)(v / amp));
+      break;
+    }
+    default:
+      break;
+  }
+}
+
+// Adds gradient terms whose index is uniform across the block: each term is
+// summed over the warp by shuffles and added by lane 0 into the warp's row
+// of a double accumulator in shared memory. No atomics, so sums repeat bit
+// for bit.
+struct WarpAcc {
+  double* row;
+  int lane;
+  __device__ __forceinline__ void operator()(int idx, double term) const {
+    const double s = warp_sum(term);
+    if (lane == 0) row[idx] += s;
+  }
+};
+
+// out[p, k] = sum over tiles of partial[p, tile, k], tiles in order.
+static __global__ void reduce_tiles_kernel(const double* __restrict__ partial,
+                                           float* __restrict__ out,
+                                           int n_tiles, int n_acc) {
+  const int p = blockIdx.x;
+  const double* pp = partial + (long long)p * n_tiles * n_acc;
+  for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
+    double s = 0.0;
+    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * n_acc + k];
+    out[(long long)p * n_acc + k] = (float)s;
+  }
+}
+
+// Thread rows (of 32 threads) of a backward block whose value (float) and
+// adjoint (double) stacks [M][threads] fit the shared-memory budget.
+constexpr int kBwdSmemBudget = 140 * 1024;
+
+static inline int bwd_thread_rows(int M) {
+  int ry = 8;
+  while (ry > 1 && 12 * M * 32 * ry > kBwdSmemBudget) ry /= 2;
+  return ry;
+}
+
+}  // namespace autogp

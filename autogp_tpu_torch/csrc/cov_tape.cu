@@ -26,32 +26,16 @@
 // per-thread array (depth <= kMaxDepth). Only the active instructions run
 // (typically 5-9), not all 2^D - 1 heap slots. Whole tiles above the
 // diagonal exit after writing zeros. The formulas are the guarded ones of
-// the reference, in the same operation order as the plain version:
-// GammaExponential's safe log and ChangePoint's sigmoid (tanh is never
-// used). Build without --use_fast_math: expf/sinf/logf must stay accurate
-// to about one ulp for parity with the plain version.
+// the reference, in the same operation order as the plain version
+// (cov_formulas.cuh, shared with the per-slot kernel cov_slot.cu).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "cov_formulas.cuh"
 
 namespace {
 
-constexpr int kMaxDepth = 8;     // value stack bound (depth_cap <= 8)
-constexpr int kMaxSlots = 255;   // 2^8 - 1 heap slots
-constexpr int kTile = 32;        // tile edge, elements
+using namespace autogp;
+
 constexpr int kRowsPerPass = 8;  // blockDim = (32, 8): 4 rows per thread
-
-// Node-type codes: autogp_tpu/config.py:16-27.
-constexpr int CONSTANT = 1, LINEAR = 2, SQUARED_EXPONENTIAL = 3,
-              GAMMA_EXPONENTIAL = 4, PERIODIC = 5, PLUS = 6, TIMES = 7,
-              CHANGEPOINT = 8, WHITE_NOISE = 9;
-// CHANGEPOINT_SCALE (config.py:62).
-constexpr float kCpScale = 1e-3f;
-constexpr float kPi = 3.14159265358979323846f;
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 __device__ float eval_tape(const int* __restrict__ slot,
                            const int* __restrict__ type, int len,
@@ -59,66 +43,14 @@ __device__ float eval_tape(const int* __restrict__ slot,
                            float t2) {
   float stack[kMaxDepth];
   int sp = 0;
-  const float dt = t1 - t2;
-  const float adt = fabsf(dt);
   for (int i = 0; i < len; ++i) {
     const int t = type[i];
     const float* p = par + 3 * slot[i];
-    float v;
-    switch (t) {
-      case CONSTANT:
-        stack[sp++] = p[0];
-        break;
-      case WHITE_NOISE:
-        stack[sp++] = (dt == 0.0f) ? p[0] : 0.0f;
-        break;
-      case LINEAR: {
-        const float c = p[0];
-        stack[sp++] = p[1] + p[2] * (t1 - c) * (t2 - c);
-        break;
-      }
-      case SQUARED_EXPONENTIAL: {
-        const float l = p[0];
-        stack[sp++] = p[1] * expf(-0.5f * (dt * dt) / (l * l));
-        break;
-      }
-      case GAMMA_EXPONENTIAL: {
-        const float l = p[0], g = p[1];
-        const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
-        const float powg = (adt == 0.0f) ? 0.0f : expf(g * logf(safe));
-        stack[sp++] = p[2] * expf(-powg);
-        break;
-      }
-      case PERIODIC: {
-        const float l = p[0];
-        const float freq = kPi / p[1];
-        const float s = sinf(freq * adt);
-        stack[sp++] = p[2] * expf((-2.0f / (l * l)) * s * s);
-        break;
-      }
-      case PLUS:
-        v = stack[sp - 2] + stack[sp - 1];
-        stack[sp - 2] = v;
-        --sp;
-        break;
-      case TIMES:
-        v = stack[sp - 2] * stack[sp - 1];
-        stack[sp - 2] = v;
-        --sp;
-        break;
-      case CHANGEPOINT: {
-        const float loc = p[0];
-        // sigmoid(2 (loc - t) / scale), in the plain version's order: the
-        // argument reaches ~2e3, so its rounding matters near loc.
-        const float s1 = sigmoidf(2.0f * (loc - t1) / kCpScale);
-        const float s2 = sigmoidf(2.0f * (loc - t2) / kCpScale);
-        v = s1 * stack[sp - 2] * s2 + (1.0f - s1) * stack[sp - 1] * (1.0f - s2);
-        stack[sp - 2] = v;
-        --sp;
-        break;
-      }
-      default:  // inactive (type 0) never appears below the tape length
-        break;
+    if (is_op(t)) {
+      stack[sp - 2] = op_value(t, p, stack[sp - 2], stack[sp - 1], t1, t2);
+      --sp;
+    } else if (t != 0) {  // inactive (type 0) never appears below the length
+      stack[sp++] = leaf_value(t, p, t1, t2);
     }
   }
   return stack[0];

@@ -1,10 +1,16 @@
-// Backward of the tape-driven covariance assembly, fused with the MVN
-// cotangent, over the lower triangle: the LML gradient with respect to the
-// transformed node parameters [M, 3] and the noise of each particle.
+// Backward of the tape-driven covariance assembly: the gradient with
+// respect to the transformed node parameters [M, 3] and the noise of each
+// particle. Two entries, one kernel:
 //
-// Replaces: autogp_tpu/ops/cov_pallas_vjp.py, _bwd_kernel_tape in its
-// fused symmetric mode (fused=True, sym=True), launched there by
-// _cov_grads_tape under lml_tape_fused's backward.
+// - fused with the MVN cotangent, over the lower triangle (the LML
+//   gradient, autogp_cov_tape_bwd);
+// - unfused, for a given cotangent Kbar [P, N, N] of the assembled matrix
+//   (autogp_cov_tape_bwd_unfused, the backward of cov_matrix_diff).
+//
+// Replaces: autogp_tpu/ops/cov_pallas_vjp.py, _bwd_kernel_tape, launched
+// there by _cov_grads_tape: fused=True, sym=True under lml_tape_fused's
+// backward, and beta=None (kbar_ref holds the cotangent) under
+// cov_matrix_diff's.
 //
 // What it computes: for particle p with tape (slot, type, lpos, rpos, len)
 // from ops/cov.py build_tape, every element (i, j) of a lower tile forms
@@ -19,7 +25,14 @@
 // The formulas are the reference's guarded ones (cov_pallas_vjp.py:
 // 313-523): GammaExponential and Periodic recover their exponent from the
 // stored value with a clamped log, ChangePoint is a sigmoid, and pi / p is
-// a true division.
+// a true division (cov_formulas.cuh, shared with the per-slot backward
+// cov_slot_bwd.cu).
+//
+// The unfused entry reads kbar = Kbar_ij (times m_i m_j when `masked`)
+// from its input instead: no symmetry is assumed, every tile of the matrix
+// is visited with weight 1, and N need not be a multiple of the tile (edge
+// threads run on a clamped element with cotangent 0, so that every warp
+// reduction stays full).
 //
 // What bounds it on this card: FP32 arithmetic and transcendentals, not
 // memory. Each lower element reads 4 bytes of Kinv and runs two sweeps of
@@ -50,42 +63,25 @@
 // double; only the tree's values and derivative factors are float32, each
 // with its own relative rounding.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "cov_formulas.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kMaxSlots = 255;
-constexpr int kSmemBudget = 140 * 1024;  // value + adjoint stacks
-
-// Node-type codes: autogp_tpu_torch/config.py.
-constexpr int CONSTANT = 1, LINEAR = 2, SQUARED_EXPONENTIAL = 3,
-              GAMMA_EXPONENTIAL = 4, PERIODIC = 5, PLUS = 6, TIMES = 7,
-              CHANGEPOINT = 8, WHITE_NOISE = 9;
-constexpr float kCpScale = 1e-3f;  // CHANGEPOINT_SCALE
-constexpr float kPi = 3.14159265358979323846f;
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using namespace autogp;
 
 // Threads of a block are (32 columns) x RY rows; the thread count T and
-// the warp count come from blockDim.
+// the warp count come from blockDim. FUSED: `kmat` is the lower-only K^-1
+// and the grid's x runs over the lower tiles; otherwise `kmat` is the
+// cotangent itself and x runs over all (N / 32 rounded up)^2 tiles.
+template <bool FUSED>
 __global__ void cov_tape_bwd_kernel(
     const int* __restrict__ tslot, const int* __restrict__ ttype,
     const int* __restrict__ tlpos, const int* __restrict__ trpos,
     const int* __restrict__ tlen, const float* __restrict__ params,
     const float* __restrict__ ts, const float* __restrict__ mask,
-    const float* __restrict__ kinv, const float* __restrict__ beta,
+    const float* __restrict__ kmat, const float* __restrict__ beta,
     const float* __restrict__ gscale, double* __restrict__ partial, int M,
-    int N) {
+    int N, int masked) {
   extern __shared__ double smem_d[];
   const int T = blockDim.x * blockDim.y;
   const int nwarps = T / 32;
@@ -101,11 +97,18 @@ __global__ void cov_tape_bwd_kernel(
 
   const int p = blockIdx.y;
   const int lin = blockIdx.x;
-  // Lower tile (ti, tj <= ti) of linear index lin = ti (ti + 1) / 2 + tj.
-  int ti = (int)((sqrtf(8.0f * (float)lin + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= lin) ++ti;
-  while (ti * (ti + 1) / 2 > lin) --ti;
-  const int tj = lin - ti * (ti + 1) / 2;
+  int ti, tj;
+  if (FUSED) {
+    // Lower tile (ti, tj <= ti) of linear index lin = ti (ti + 1) / 2 + tj.
+    ti = (int)((sqrtf(8.0f * (float)lin + 1.0f) - 1.0f) * 0.5f);
+    while ((ti + 1) * (ti + 2) / 2 <= lin) ++ti;
+    while (ti * (ti + 1) / 2 > lin) --ti;
+    tj = lin - ti * (ti + 1) / 2;
+  } else {
+    const int nt = (N + kTile - 1) / kTile;
+    ti = lin / nt;
+    tj = lin - ti * nt;
+  }
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * 32 + tx;
@@ -122,92 +125,45 @@ __global__ void cov_tape_bwd_kernel(
   __syncthreads();
 
   const int len = tlen[p];
-  const double g = gscale[p];
-  const float* kp = kinv + (long long)p * N * N;
-  const float* bp = beta + (long long)p * N;
+  const float* kp = kmat + (long long)p * N * N;
   const bool diag_tile = (ti == tj);
-  const int j = tj * kTile + tx;
+  // The fused entry takes N a multiple of the tile, so the clamps bind in
+  // the unfused entry only.
+  const int j_raw = tj * kTile + tx;
+  const int j = FUSED ? j_raw : min(j_raw, N - 1);
   const float t2 = ts[j];
   const float mj = mask[j];
-  const double bj = bp[j];
-  double* my_acc = wacc + warp * n_acc;
-
-  // Adds one gradient term (uniform index across the block) to the warp's
-  // accumulator row.
-#define ACC(idx, term)                  \
-  do {                                  \
-    const double s_ = warp_sum(term);   \
-    if (lane == 0) my_acc[idx] += s_;   \
-  } while (0)
+  const WarpAcc acc{wacc + warp * n_acc, lane};
 
   for (int rr = ty; rr < kTile; rr += blockDim.y) {
-    const int i = ti * kTile + rr;
-    const float t1 = ts[i];
-    const float dt = t1 - t2;
-    const float adt = fabsf(dt);
+    const int i_raw = ti * kTile + rr;
+    const int i = FUSED ? i_raw : min(i_raw, N - 1);
+    const Elem e(ts[i], t2);
 
     // Cotangent of this element, in the reference's operation order.
-    const double kij = (i >= j) ? kp[(long long)i * N + j] : 0.0f;
-    double kb = (0.5 * g) * ((double)bp[i] * bj - kij);
-    kb = kb * (double)(mask[i] * mj);
-    const double w = (i > j) ? 2.0 : ((i == j) ? 1.0 : 0.0);
-    kb = kb * w;
-    if (diag_tile) ACC(n_acc - 1, (i == j) ? kb : 0.0);
+    double kb;
+    if (FUSED) {
+      const double g = gscale[p];
+      const float* bp = beta + (long long)p * N;
+      const double kij = (i >= j) ? kp[(long long)i * N + j] : 0.0f;
+      kb = (0.5 * g) * ((double)bp[i] * (double)bp[j] - kij);
+      kb = kb * (double)(mask[i] * mj);
+      const double w = (i > j) ? 2.0 : ((i == j) ? 1.0 : 0.0);
+      kb = kb * w;
+    } else {
+      kb = (i_raw < N && j_raw < N) ? (double)kp[(long long)i * N + j] : 0.0;
+      if (masked) kb = kb * (double)(mask[i] * mj);
+    }
+    if (diag_tile) acc(n_acc - 1, (i_raw == j_raw) ? kb : 0.0);
 
     // Forward sweep: the value of every tape position.
     for (int q = 0; q < len; ++q) {
       const float* pr = s_par + 3 * s_slot[q];
-      float v = 0.0f;
-      switch (s_type[q]) {
-        case CONSTANT:
-          v = pr[0];
-          break;
-        case WHITE_NOISE:
-          v = (dt == 0.0f) ? pr[0] : 0.0f;
-          break;
-        case LINEAR: {
-          const float c = pr[0];
-          v = pr[1] + pr[2] * ((t1 - c) * (t2 - c));
-          break;
-        }
-        case SQUARED_EXPONENTIAL: {
-          const float l = pr[0];
-          v = pr[1] * expf((-0.5f / (l * l)) * (dt * dt));
-          break;
-        }
-        case GAMMA_EXPONENTIAL: {
-          const float l = pr[0], ga = pr[1];
-          const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
-          const float powg = (adt == 0.0f) ? 0.0f : expf(ga * logf(safe));
-          v = pr[2] * expf(-powg);
-          break;
-        }
-        case PERIODIC: {
-          const float l = pr[0];
-          const float freq = kPi / pr[1];
-          const float sn = sinf(freq * adt);
-          v = pr[2] * expf((-2.0f / (l * l)) * sn * sn);
-          break;
-        }
-        case PLUS:
-          v = val[s_l[q] * T + tid] + val[s_r[q] * T + tid];
-          break;
-        case TIMES:
-          v = val[s_l[q] * T + tid] * val[s_r[q] * T + tid];
-          break;
-        case CHANGEPOINT: {
-          const float loc = pr[0];
-          const float inv = 2.0f / kCpScale;
-          const float s1 = sigmoidf((loc - t1) * inv);
-          const float s2 = sigmoidf((loc - t2) * inv);
-          v = s1 * val[s_l[q] * T + tid] * s2
-              + (1.0f - s1) * val[s_r[q] * T + tid] * (1.0f - s2);
-          break;
-        }
-        default:
-          break;
-      }
-      val[q * T + tid] = v;
+      const int t = s_type[q];
+      val[q * T + tid] =
+          is_op(t) ? ref_op_value(t, pr, val[s_l[q] * T + tid],
+                                  val[s_r[q] * T + tid], e)
+                   : ref_leaf_value(t, pr, e);
     }
 
     // Reverse sweep: adjoints, and the gradient terms.
@@ -215,86 +171,20 @@ __global__ void cov_tape_bwd_kernel(
     for (int k = 0; k < len; ++k) {
       const int q = len - 1 - k;
       const int s = s_slot[q];
+      const int t = s_type[q];
       const float* pr = s_par + 3 * s;
       const double a = adj[q * T + tid];
-      const int base = 3 * s;
-      switch (s_type[q]) {
-        case PLUS:
-          adj[s_l[q] * T + tid] = a;
-          adj[s_r[q] * T + tid] = a;
-          break;
-        case TIMES:
-          adj[s_l[q] * T + tid] = a * (double)val[s_r[q] * T + tid];
-          adj[s_r[q] * T + tid] = a * (double)val[s_l[q] * T + tid];
-          break;
-        case CHANGEPOINT: {
-          const float loc = pr[0];
-          const float inv = 2.0f / kCpScale;
-          const float s1 = sigmoidf((loc - t1) * inv);
-          const float s2 = sigmoidf((loc - t2) * inv);
-          const float vl = val[s_l[q] * T + tid];
-          const float vr = val[s_r[q] * T + tid];
-          const float ds1 = s1 * (1.0f - s1) * inv;
-          const float ds2 = s2 * (1.0f - s2) * inv;
-          const float dloc = ds1 * (s2 * vl - (1.0f - s2) * vr)
-                             + ds2 * (s1 * vl - (1.0f - s1) * vr);
-          ACC(base, a * (double)dloc);
-          adj[s_l[q] * T + tid] = a * (double)s1 * (double)s2;
-          adj[s_r[q] * T + tid] =
-              a * (double)(1.0f - s1) * (double)(1.0f - s2);
-          break;
-        }
-        case CONSTANT:
-          ACC(base, a);
-          break;
-        case WHITE_NOISE:
-          ACC(base, (dt == 0.0f) ? a : 0.0);
-          break;
-        case LINEAR: {
-          const float c = pr[0], amp = pr[2];
-          ACC(base, a * (double)((-amp) * (t1 + t2 - 2.0f * c)));
-          ACC(base + 1, a);
-          ACC(base + 2, a * (double)((t1 - c) * (t2 - c)));
-          break;
-        }
-        case SQUARED_EXPONENTIAL: {
-          const float l = pr[0], amp = pr[1];
-          const float v = val[q * T + tid];
-          ACC(base, a * (double)(v * (dt * dt) / (l * l * l)));
-          ACC(base + 1, a * (double)(v / amp));
-          break;
-        }
-        case GAMMA_EXPONENTIAL: {
-          const float l = pr[0], ga = pr[1], amp = pr[2];
-          const float v = val[q * T + tid];
-          const float e_safe = fmaxf(v / amp, 1e-38f);
-          const float u = (adt == 0.0f) ? 0.0f : -logf(e_safe);
-          const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
-          const float logs = (adt == 0.0f) ? 0.0f : logf(safe);
-          ACC(base, a * (double)(v * ga * u / l));
-          ACC(base + 1, a * (double)(v * (-u) * logs));
-          ACC(base + 2, a * (double)(v / amp));
-          break;
-        }
-        case PERIODIC: {
-          const float l = pr[0], per = pr[1], amp = pr[2];
-          const float v = val[q * T + tid];
-          const float e_safe = fmaxf(v / amp, 1e-38f);
-          const float sn2 = (-0.5f * l * l) * logf(e_safe);
-          const float freq = kPi / per;
-          const float sncs = 0.5f * sinf(2.0f * freq * adt);
-          ACC(base, a * (double)(v * (4.0f * sn2) / (l * l * l)));
-          ACC(base + 1, a * (double)(v * (4.0f / (l * l)) * sncs
-                                     * (kPi * adt / (per * per))));
-          ACC(base + 2, a * (double)(v / amp));
-          break;
-        }
-        default:
-          break;
+      if (is_op(t)) {
+        double al, ar;
+        ref_op_adjoint(t, pr, val[s_l[q] * T + tid], val[s_r[q] * T + tid], a,
+                       e, 3 * s, al, ar, acc);
+        adj[s_l[q] * T + tid] = al;
+        adj[s_r[q] * T + tid] = ar;
+      } else {
+        ref_leaf_grad(t, pr, val[q * T + tid], a, e, 3 * s, acc);
       }
     }
   }
-#undef ACC
   __syncthreads();
 
   // Warps in order into this tile's partial.
@@ -306,27 +196,39 @@ __global__ void cov_tape_bwd_kernel(
   }
 }
 
-// out[p, k] = sum over tiles of partial[p, tile, k], tiles in order.
-__global__ void cov_tape_bwd_reduce(const double* __restrict__ partial,
-                                    float* __restrict__ out, int n_tiles,
-                                    int n_acc) {
-  const int p = blockIdx.x;
-  const double* pp = partial + (long long)p * n_tiles * n_acc;
-  for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
-    double s = 0.0;
-    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * n_acc + k];
-    out[(long long)p * n_acc + k] = (float)s;
-  }
-}
-
-}  // namespace
-
 // Shared memory of one block with RY thread rows, in bytes.
-static int bwd_smem_bytes(int M, int ry) {
+int bwd_smem_bytes(int M, int ry) {
   const int T = 32 * ry;
   const int n_acc = 3 * M + 1;
   return (ry * n_acc) * 8 + M * T * 12 + 3 * M * 4 + 4 * M * 4;
 }
+
+template <bool FUSED>
+int launch(const void* tslot, const void* ttype, const void* tlpos,
+           const void* trpos, const void* tlen, const void* params,
+           const void* ts, const void* mask, const void* kmat,
+           const void* beta, const void* g, void* partial, void* out, int P,
+           int M, int N, int masked, int n_tiles, void* stream) {
+  const int ry = bwd_thread_rows(M);
+  const int smem = bwd_smem_bytes(M, ry);
+  cudaError_t err = cudaFuncSetAttribute(
+      cov_tape_bwd_kernel<FUSED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  auto s = (cudaStream_t)stream;
+  cov_tape_bwd_kernel<FUSED><<<dim3(n_tiles, P), dim3(32, ry), smem, s>>>(
+      (const int*)tslot, (const int*)ttype, (const int*)tlpos,
+      (const int*)trpos, (const int*)tlen, (const float*)params,
+      (const float*)ts, (const float*)mask, (const float*)kmat,
+      (const float*)beta, (const float*)g, (double*)partial, M, N, masked);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_tiles_kernel<<<P, 128, 0, s>>>((const double*)partial, (float*)out,
+                                        n_tiles, 3 * M + 1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // Tapes [P, M] int32 (slot, type, lpos, rpos) and lengths [P]; params
 // [P, M, 3], ts and mask [N], kinv [P, N, N] lower-only, beta [P, N],
@@ -339,24 +241,25 @@ extern "C" int autogp_cov_tape_bwd(
     void* partial, void* out, int P, int M, int N, void* stream) {
   if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1)
     return (int)cudaErrorInvalidValue;
-  int ry = 8;
-  while (ry > 1 && 12 * M * 32 * ry > kSmemBudget) ry /= 2;
-  const int smem = bwd_smem_bytes(M, ry);
-  cudaError_t err = cudaFuncSetAttribute(
-      cov_tape_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
   const int nt = N / kTile;
-  const int n_lower = nt * (nt + 1) / 2;
-  auto s = (cudaStream_t)stream;
-  cov_tape_bwd_kernel<<<dim3(n_lower, P), dim3(32, ry), smem, s>>>(
-      (const int*)tslot, (const int*)ttype, (const int*)tlpos,
-      (const int*)trpos, (const int*)tlen, (const float*)params,
-      (const float*)ts, (const float*)mask, (const float*)kinv,
-      (const float*)beta, (const float*)g, (double*)partial, M, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cov_tape_bwd_reduce<<<P, 128, 0, s>>>((const double*)partial, (float*)out,
-                                        n_lower, 3 * M + 1);
-  return (int)cudaGetLastError();
+  return launch<true>(tslot, ttype, tlpos, trpos, tlen, params, ts, mask,
+                      kinv, beta, g, partial, out, P, M, N, 1,
+                      nt * (nt + 1) / 2, stream);
+}
+
+// The same tapes, params, ts and mask; kbar [P, N, N] float32, the
+// cotangent of the assembled matrix, multiplied by mask_i mask_j when
+// `masked`; partial scratch [P, ceil(N / 32)^2, 3M + 1] float64; out
+// [P, 3M + 1] float32. Any N >= 1.
+extern "C" int autogp_cov_tape_bwd_unfused(
+    const void* tslot, const void* ttype, const void* tlpos,
+    const void* trpos, const void* tlen, const void* params, const void* ts,
+    const void* mask, const void* kbar, void* partial, void* out, int P,
+    int M, int N, int masked, void* stream) {
+  if (M < 1 || M > kMaxSlots || N < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nt = (N + kTile - 1) / kTile;
+  return launch<false>(tslot, ttype, tlpos, trpos, tlen, params, ts, mask,
+                       kbar, nullptr, nullptr, partial, out, P, M, N, masked,
+                       nt * nt, stream);
 }

@@ -16,7 +16,10 @@ they run the hand-written kernels.
 The gradient path's plain helpers are here too: `kinv_from_linv` and the
 closed-form cotangent of the MVN log density (autogp_tpu/gp_math.py:
 402-473), which the plain versions of the kinv and tape-backward kernels
-use.
+use; `mvn_logpdf_masked_cvjp`, the MVN log density as an autograd Function
+with that cotangent as its backward (the dense gradient route of
+`model.lml`); and the joint-Cholesky posteriors `posterior_mvn_masked` and
+`posterior_logpdf_masked`.
 """
 
 from __future__ import annotations
@@ -251,6 +254,69 @@ def mvn_logpdf_cotangent(beta, Kinv, mask, g):
             * (beta[:, :, None] * beta[:, None, :] - Kinv) * m2)
 
 
+class MvnLogpdfMaskedCvjp(torch.autograd.Function):
+    """apply(K, x, mask, pregram): see `mvn_logpdf_masked_cvjp`."""
+
+    @staticmethod
+    def forward(ctx, K, x, mask, pregram: bool):
+        from autogp_tpu_torch.ops import chol
+        P, N, _ = K.shape
+        Km = K if pregram else masked_gram(K, mask)
+        xm = (x * mask).expand(P, N)
+        if use_blocked_inv(N):
+            d, alpha, wd, L = chol.chol_solve_strips(Km, xm)
+            ctx.save_for_backward(L, alpha, mask, wd)
+        else:
+            L, alpha = chol.chol_solve(Km, xm)
+            d = torch.diagonal(L, dim1=-2, dim2=-1)
+            ctx.save_for_backward(L, alpha, mask)
+        ctx.x_batched = x.dim() == 2
+        return mvn_logpdf_from_factor(d, alpha, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        from autogp_tpu_torch.ops import kinv
+        L, alpha, mask, *wd = ctx.saved_tensors
+        if wd:
+            Kl, beta, _ = kinv.kinv_beta_strips(alpha, wd[0], L)
+            Kinv = torch.tril(Kl) + torch.tril(Kl, -1).mT
+        else:
+            beta = torch.linalg.solve_triangular(
+                L.mT, alpha[..., None], upper=True)[..., 0]
+            eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+            Kinv = torch.cholesky_solve(eye.expand_as(L), L)
+        Kbar = mvn_logpdf_cotangent(beta, Kinv, mask, g)
+        xbar = -g[:, None] * beta
+        return (Kbar, xbar if ctx.x_batched else xbar.sum(0), None, None)
+
+
+def mvn_logpdf_masked_cvjp(K, x, mask, pregram: bool = False):
+    """`mvn_logpdf_masked` with the closed-form cotangent as its backward
+    (autogp_tpu/gp_math.py:337-473): Kbar = 0.5 g (beta beta^T - K^-1)
+    m m^T, beta = K^-1 x, and xbar = -g beta.
+
+    K [P, N, N] (lower triangle read; any N), x [N] or [P, N], mask [N].
+    `pregram` says K already is the padded-identity gram (the assembly
+    kernels emit it). The value is bitwise `mvn_logpdf_masked`'s: the same
+    blocked factorization. Where `use_blocked_inv(N)` the backward takes K^-1 and
+    beta from the kinv kernel; otherwise from dense triangular solves
+    against the identity, as the reference's rule does in XLA."""
+    return MvnLogpdfMaskedCvjp.apply(K, x, mask, pregram)
+
+
+def mvn_logpdf(mu, K, x):
+    """Dense MVN log density [P] of x [p] or [P, p] under N(mu [P, p],
+    K [P, p, p]); NaN where K is not positive definite."""
+    L, info = torch.linalg.cholesky_ex(K)
+    d = (x - mu)[..., None]
+    alpha = torch.linalg.solve_triangular(L, d, upper=False)[..., 0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                             dim=-1)
+    out = -0.5 * (K.shape[-1] * LOG2PI + logdet
+                  + torch.sum(alpha * alpha, dim=-1))
+    return torch.where(info > 0, float("nan"), out)
+
+
 # ---------------------------------------------------------------------------
 # Posterior predictive marginals (GP.jl:731-758; gp_math.py:541-583)
 # ---------------------------------------------------------------------------
@@ -287,3 +353,49 @@ def posterior_marginals_from_factor(node_type, params, L, alpha, mask, ts,
     var = (torch.diagonal(Kpp, dim1=-2, dim2=-1) + noise_pred[:, None]
            - torch.sum(V * V, dim=-2))
     return mu, torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def posterior_mvn_masked(node_type, params, noise, ts, xs, mask, ts_pred,
+                         depth_cap: int, noise_pred=None):
+    """Conditional MVN (mu [P, p], cov [P, p, p]) of X(ts_pred) given
+    X(ts_active) = xs_active, through the joint Cholesky
+    (autogp_tpu/gp_math.py:501-538): with
+        chol([[K11m, K12m], [K21m, K22 + noise_pred I]]) = [[L11, 0],
+                                                            [L21, L22]]
+    the conditional covariance is L22 L22^T, positive semi-definite by
+    construction; the explicit Schur complement goes indefinite in
+    float32. `noise` and `noise_pred` are [P] (default noise). The joint
+    matrix has n + p rows for any p, so it takes a dense factorization
+    (NaN where it fails), as the reference's does."""
+    from autogp_tpu_torch.ops import cov
+    if noise_pred is None:
+        noise_pred = noise
+    P, n, p = node_type.shape[0], ts.shape[0], ts_pred.shape[0]
+    z = torch.cat([ts, ts_pred])
+    ones = torch.ones_like(z)
+    zero = torch.zeros(P, dtype=z.dtype, device=z.device)
+    K = cov.cov_tape(node_type, params, zero, z, z, ones, ones, depth_cap,
+                     gram=False, lower_only=False)
+    K = 0.5 * (K + K.mT)
+    noise_diag = torch.cat([noise[:, None].expand(P, n),
+                            noise_pred[:, None].expand(P, p)], dim=1)
+    J = K + torch.diag_embed(noise_diag)
+    m_ext = torch.cat([mask, torch.ones_like(ts_pred)])
+    L, info = torch.linalg.cholesky_ex(masked_gram(J, m_ext))
+    L = torch.where((info > 0)[:, None, None], float("nan"), L)
+    alpha = torch.linalg.solve_triangular(
+        L[:, :n, :n], (xs * mask).expand(P, n)[..., None], upper=False)
+    mu = torch.matmul(L[:, n:, :n], alpha)[..., 0]
+    L22 = L[:, n:, n:]
+    cov_pred = torch.matmul(L22, L22.mT)
+    return mu, 0.5 * (cov_pred + cov_pred.mT)
+
+
+def posterior_logpdf_masked(node_type, params, noise, ts, xs, mask, ts_pred,
+                            y_pred, depth_cap: int, noise_pred=None):
+    """[P] log densities of y_pred [p] under the posterior predictive MVN
+    of `posterior_mvn_masked` (autogp_tpu/gp_math.py:586-599)."""
+    mu, cov_pred = posterior_mvn_masked(node_type, params, noise, ts, xs,
+                                        mask, ts_pred, depth_cap,
+                                        noise_pred=noise_pred)
+    return mvn_logpdf(mu, cov_pred, y_pred)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -318,10 +318,16 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                         adaptive_resampling: bool = True,
                         adaptive_rejuvenation: bool = False,
                         verbose: bool = False, check: bool = False,
-                        round_stats: Optional[list] = None) -> Particles:
+                        round_stats: Optional[list] = None,
+                        callback_fn: Optional[Callable] = None) -> Particles:
     """Anneal over data prefixes ts[perm][:step] for step in schedule.
     With a list `round_stats`, one dict of totals per round is appended
-    to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted."""
+    to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted.
+    `callback_fn` is called after the initialization (step 0) and after
+    every round with the keywords particles, ts, xs (permuted), permutation,
+    schedule, step, elapsed (seconds of SMC work so far, the callback's own
+    time left out), rejuvenated, resampled, verbose (smc.py:671-675,
+    723-729)."""
     n = len(ts)
     ts = np.asarray(ts, np.float64)
     xs = np.asarray(xs, np.float64)
@@ -341,12 +347,29 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
     if len(n_mcmc) != len(schedule) or len(n_hmc) != len(schedule):
         raise ValueError("n_mcmc / n_hmc lists must match the schedule")
 
+    def clock():
+        # Elapsed times count finished device work, as the reference's
+        # block_until_ready does.
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.time()
+
+    def call_back(step, rejuvenated, resampled):
+        callback_fn(particles=particles, ts=ts, xs=xs,
+                    permutation=permutation, schedule=schedule, step=step,
+                    elapsed=elapsed, rejuvenated=rejuvenated,
+                    resampled=resampled, verbose=verbose)
+
     # Initialize from the prior on empty data (:180-190).
+    t0 = clock()
     data0 = make_dataset(ts, xs, n=0, pad_to=bucket_size(1), dtype=dtype,
                          device=device)
     particles = initialize(gen, n_particles, data0, cfg, tables)
+    elapsed = clock() - t0
+    if callback_fn is not None:
+        call_back(0, False, False)
     for i, step in enumerate(schedule):
-        t0 = time.time()
+        t0 = clock()
         data = make_dataset(ts, xs, n=step, pad_to=bucket_size(step),
                             dtype=dtype, device=device)
         ess_threshold = (n_particles / 2 if adaptive_resampling
@@ -355,6 +378,8 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             gen, particles, data, cfg, tables, int(n_mcmc[i]),
             int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
             adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check)
+        dt_round = clock() - t0
+        elapsed += dt_round
         if round_stats is not None:
             round_stats.append({
                 "step": step, "resampled": bool(stats["resampled"]),
@@ -364,8 +389,7 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             w = normalized_weights(particles.log_weights).cpu().numpy()
             ess = float(effective_sample_size(particles.log_weights))
             acc = stats["mh_accepted"].cpu().numpy()
-            print(f"SMC round {step}/{schedule[-1]} "
-                  f"({time.time() - t0:.3f} s)")
+            print(f"SMC round {step}/{schedule[-1]} ({dt_round:.3f} s)")
             print("Particle Weights:", np.array2string(w, precision=3))
             print(f"Particle ESS: {ess / n_particles}")
             print(f"resampled {bool(stats['resampled'])}")
@@ -378,4 +402,6 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             assert ok[:, 2].all(), "per-move detach round trip"
             assert ok[:, 3].all(), "per-move attach round trip"
             validate_particles(particles, cfg, tables=tables, gen=gen)
+        if callback_fn is not None:
+            call_back(step, stats["rejuvenated"], bool(stats["resampled"]))
     return particles

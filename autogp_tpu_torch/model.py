@@ -260,15 +260,25 @@ def lml(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
     primal): kernel 1 assembles the padded-identity gram with noise,
     lower triangle only, and kernel 2's blocked driver returns diag(L) and
     alpha. When params_z or noise_z requires grad (and grad mode is on)
-    the same value comes from `cov_vjp.LmlTapeFused`, whose backward runs
-    the kinv and tape-backward kernels; the two values are bitwise equal.
-    A failed factorization gives NaN."""
+    the same value comes from a differentiable route, chosen as the
+    reference chooses it (autogp_tpu/model.py:280-291): where
+    `gp_math.use_blocked_inv(N)` (N a power of two >= 64),
+    `cov_vjp.LmlTapeFused`, whose backward runs the kinv and fused
+    tape-backward kernels; otherwise (the 32-point bucket, any other N)
+    `cov_vjp.cov_matrix_diff` + `gp_math.mvn_logpdf_masked_cvjp`, whose
+    backward forms the cotangent [P, N, N] densely and hands it to the
+    tape backward's unfused entry. All three values are bitwise equal. A
+    failed factorization gives NaN."""
     params_t = transform_params(node_type, params_z, tables)
     noise = transform_noise(noise_z, config)
     if torch.is_grad_enabled() and (params_t.requires_grad
                                     or noise.requires_grad):
-        return cov_vjp.LmlTapeFused.apply(params_t, noise, node_type, ts, xs,
-                                          mask, tables.depth_cap)
+        if gp_math.use_blocked_inv(ts.shape[0]):
+            return cov_vjp.LmlTapeFused.apply(params_t, noise, node_type, ts,
+                                              xs, mask, tables.depth_cap)
+        K = cov_vjp.cov_matrix_diff(node_type, params_t, noise, ts, mask,
+                                    tables.depth_cap)
+        return gp_math.mvn_logpdf_masked_cvjp(K, xs, mask, True)
     K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
                      tables.depth_cap, gram=True, lower_only=True)
     return gp_math.mvn_logpdf_masked(K, xs, mask)

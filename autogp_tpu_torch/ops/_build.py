@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (autogp_tpu_torch/csrc).
 
-All `csrc/*.cu` files are compiled in one `nvcc` call into a shared library
-with a plain C interface, loaded with ctypes. The build happens at first
-use, never at import, into `autogp_tpu_torch/_build/` (ignored by git),
-and the file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and an unchanged one is reused.
+Every `csrc/*.cu` file is compiled by an `nvcc` of its own, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes. The build happens at first use, never at
+import, into `autogp_tpu_torch/_build/` (ignored by git), and the file name
+carries a hash of the sources, the headers (`csrc/*.cuh`) and the flags, so
+an edited kernel is rebuilt and an unchanged one is reused.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises if that is not 0 (a refused launch
@@ -25,8 +26,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,17 @@ SIGNATURES = {
     # g, partial scratch, out, P, M, N, stream
     "autogp_cov_tape_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _P],
+    # tape slot, type, lpos, rpos, length, params, ts, mask, kbar, partial
+    # scratch, out, P, M, N, masked, stream
+    "autogp_cov_tape_bwd_unfused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _I, _P],
+    # node_type, post-order, params, noise, ts, mask, out, P, M, N, masked,
+    # stream
+    "autogp_cov_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # node_type, post-order, params, ts, mask, kbar, partial scratch, out,
+    # P, M, N, masked, stream
+    "autogp_cov_slot_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P],
 }
 
 _lib = None
@@ -72,10 +85,37 @@ def _sources():
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds) -> str:
+    """Run the commands side by side; their output, or RuntimeError with
+    the output of those that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}"
+              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
+def _compile(srcs, so: Path) -> str:
+    """One nvcc per source, all at once, then the link; nvcc's output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, so.name)
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, so)   # atomic: a concurrent loader sees all or none
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -87,16 +127,7 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libautogp_kernels_{_digest(srcs)}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
+        build_log = _compile(srcs, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -12,8 +12,10 @@ The driver keeps the one-level right-looking design of `_factor_driver`
 (:188-261): for each B-wide panel, kernel 2 factors the diagonal block and
 inverts it, then plain IEEE-f32 matmuls form L21 = A21 Lkk^-T, the trailing
 update A22 - L21 L21^T and the forward solve alpha = L^-1 x, as the JAX
-package did in XLA. Only the lower triangle of the input is read. B =
-min(N, 128), so every SMC bucket (N = 32 ... 1024) runs through the kernel.
+package did in XLA. Only the lower triangle of the input is read. Panels are
+B = min(N, 128) wide and the last one takes what is left, N - B (nb - 1)
+columns, so every SMC bucket (N = 32 ... 1024) and any other N run through
+the kernel (`cholesky_solve_batched`'s contract, chol_pallas.py).
 
 Three entries, one driver: `chol_solve_diag` (diag(L), alpha) for the LML
 value path, as `cholesky_solve_diag_batched` (:413); `chol_solve` (L,
@@ -83,21 +85,24 @@ def _driver(K, x, want_l: bool, want_wd: bool = False):
     """Right-looking blocked factorization of K [P, N, N] with the solve
     alpha = L^-1 x riding the panel loop. Returns (L or None, diag(L),
     alpha, Wd or None); Wd [P, nb, B, B] stacks kernel 2's per-panel
-    Lkk^-1 blocks. Every entry runs this same code, so diag and alpha are
-    bitwise the same whichever outputs are kept."""
+    Lkk^-1 blocks (N a multiple of B only). Every entry runs this same
+    code, so diag and alpha are bitwise the same whichever outputs are
+    kept. When B does not divide N the last panel is narrower."""
     P, N, _ = K.shape
-    B = min(N, BLOCK)
-    if N % B != 0:
-        raise ValueError(f"N={N} is not a multiple of the panel width {B}")
+    Bfull = min(N, BLOCK)
+    if want_wd and N % Bfull != 0:
+        raise ValueError(f"Wd needs N={N} a multiple of the panel width "
+                         f"{Bfull}")
     if backend.on_cuda(K):
         backend.require_ieee_f32()
-    nb = N // B
+    nb = -(-N // Bfull)
     A = K
     xcur = x
     diags, alphas, wds = [], [], []
     L = torch.zeros_like(K) if want_l else None
     for k in range(nb):
-        r0 = k * B
+        r0 = k * Bfull
+        B = min(Bfull, N - r0)
         Lkk, Winv = panel_factor(A[:, :B, :B])
         a_k = torch.matmul(Winv, xcur[:, :B, None])[..., 0]
         alphas.append(a_k)

@@ -1,13 +1,17 @@
-"""Kernel 1: tape-driven covariance assembly (csrc/cov_tape.cu).
+"""Kernels 1 and 6: covariance assembly, tape-driven (csrc/cov_tape.cu) and
+per-slot (csrc/cov_slot.cu).
 
 Port of autogp_tpu/ops/cov_pallas.py: `build_tape` (:147-176) as a torch
-op, the wrapper of the CUDA kernel that replaces the Pallas
-`_cov_kernel_tape_1p` (:252-296, launched by `cov_matrix_tape`, :299), and
-its plain PyTorch version built on gp_math.eval_cov.
+op; `cov_tape`, the wrapper of the CUDA kernel that replaces the Pallas
+`_cov_kernel_tape_1p` (:252-296, launched by `cov_matrix_tape`, :299);
+`cov_matrix`, the wrapper of the one that replaces `_cov_kernel_1p`
+(:386-415, launched by `cov_matrix` / `cov_matrix_batched`, :363-487); and
+their plain PyTorch versions built on gp_math.eval_cov.
 
-`cov_tape` dispatches on the device of its inputs only: CUDA tensors launch
-the kernel (float32, or it raises), CPU tensors take `cov_tape_plain`.
-`launches` counts kernel launches and nothing else.
+Both dispatch on the device of their inputs only: CUDA tensors launch the
+kernel (float32, or it raises), CPU tensors take the plain version.
+`launches` and `slot_launches` count the launches of kernels 1 and 6 and
+nothing else.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from autogp_tpu_torch import gp_math
 MAX_DEPTH = 8
 
 launches = 0
+slot_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,4 +144,66 @@ def _launch(node_type, params_t, noise, t_row, t_col, m_row, m_col,
         out.data_ptr(), P, M, N1, N2, int(gram), int(lower_only), stream)
     _build.check("autogp_cov_tape", err)
     launches += 1
+    return out
+
+
+def cov_matrix_plain(node_type, params_t, noise, ts, mask, depth_cap: int,
+                     masked: bool = True):
+    """Plain PyTorch version of the per-slot kernel (same contract as
+    `cov_matrix`)."""
+    m = mask if masked else torch.ones_like(mask)
+    return cov_tape_plain(node_type, params_t, noise, ts, ts, m, m,
+                          depth_cap, gram=True, lower_only=False)
+
+
+def cov_matrix(node_type, params_t, noise, ts, mask, depth_cap: int,
+               masked: bool = True):
+    """Grams [P, N, N] = eval_cov(tree)(ts, ts) + noise I of the encoded
+    trees, sweeping all M heap slots (`cov_matrix_batched`,
+    cov_pallas.py:363). With `masked`, rows and columns with mask 0 become
+    the identity. node_type [P, M]; params_t [P, M, 3]; noise [P]; ts,
+    mask [N], any N."""
+    if depth_cap > MAX_DEPTH:
+        raise ValueError(f"depth_cap={depth_cap} exceeds the kernel's value "
+                         f"stack bound {MAX_DEPTH}")
+    if not backend.on_cuda(params_t):
+        return cov_matrix_plain(node_type, params_t, noise, ts, mask,
+                                depth_cap, masked)
+    return _launch_slot(node_type, params_t, noise, ts, mask, depth_cap,
+                        masked)
+
+
+def slot_inputs(node_type, depth_cap: int):
+    """(node types [P, M] int32, post-order [M] int32) as the per-slot
+    kernels take them."""
+    P, M = node_type.shape
+    if M != (1 << depth_cap) - 1:
+        raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
+    return (node_type.to(torch.int32).contiguous(),
+            _postorder(depth_cap, node_type.device).to(torch.int32))
+
+
+def _launch_slot(node_type, params_t, noise, ts, mask, depth_cap, masked):
+    global slot_launches
+    from autogp_tpu_torch.ops import _build
+    P, M = node_type.shape
+    N = ts.shape[0]
+    nt32, order = slot_inputs(node_type, depth_cap)
+    f32 = torch.float32
+    for name, t, nd in (("params", params_t, 3), ("noise", noise, 1),
+                        ("ts", ts, 1), ("mask", mask, 1)):
+        backend.check_kernel_input(name, t, f32, nd)
+    if (params_t.shape != (P, M, 3) or noise.shape != (P,)
+            or mask.shape != (N,)):
+        raise ValueError("cov_matrix: params_t must be [P, M, 3], noise [P] "
+                         "and mask [N]")
+    out = torch.empty((P, N, N), dtype=f32, device=params_t.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(params_t.device).cuda_stream
+    err = lib.autogp_cov_slot(
+        nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
+        noise.data_ptr(), ts.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        P, M, N, int(masked), stream)
+    _build.check("autogp_cov_slot", err)
+    slot_launches += 1
     return out

@@ -1,5 +1,6 @@
-"""Kernel 5: the tape backward of the covariance assembly, fused with the
-MVN cotangent (csrc/cov_tape_bwd.cu), and the LML as an autograd Function.
+"""Kernels 5 and 7: the backward of the covariance assembly, tape-driven
+(csrc/cov_tape_bwd.cu) and per-slot (csrc/cov_slot_bwd.cu), the assembly
+and the LML as autograd Functions.
 
 Port of autogp_tpu/ops/cov_pallas_vjp.py:
 
@@ -11,16 +12,29 @@ Port of autogp_tpu/ops/cov_pallas_vjp.py:
   noise. Its plain version forms the cotangent 0.5 g (beta beta^T - K^-1)
   m m^T and takes the vector-Jacobian product of `cov.cov_tape_plain`
   with torch.autograd.grad.
+- `cov_grads_tape` wraps the same kernel's unfused entry (`beta=None`
+  there): the cotangent Kbar [P, N, N] itself is the input, no symmetry is
+  assumed and every tile is visited.
+- `cov_grads` wraps the CUDA kernel that replaces the per-slot `_bwd_kernel`
+  (:117, launched by `_cov_grads`, :676): the same contract, sweeping all M
+  heap slots instead of a tape. Both share one plain version, the
+  vector-Jacobian product of `cov.cov_matrix_plain`.
+- `cov_matrix_diff` (:741) is the assembly as an autograd Function: forward
+  kernel 1 (`tape=True`) or kernel 6, backward `cov_grads_tape` or
+  `cov_grads`. Differentiable in (params_t, noise) only.
 - `LmlTapeFused` is `lml_tape_fused` (:842) over the batch. Forward:
   kernel 1 (lower_only), `chol.chol_solve_strips`, the LML value --
   bitwise the value-only route's. Backward: `kinv.kinv_beta_strips`, then
   kernel 5. Differentiable in (params_t, noise) only.
 
 The kinv kernel and kernel 5 take every power-of-two N >= 32 (B = min(N,
-128)), so there is no XLA-style fallback and no TAPE_CAP dispatch (that
-cap was a VMEM budget). Kernel 5's unfused mode (a given cotangent, for
-`cov_matrix_diff`) and its in-tape L^-1 mode have no caller in the port
-and are not ported (ROADMAP.md).
+128)) and there is no TAPE_CAP dispatch (that cap was a VMEM budget);
+`model.lml` sends the buckets the reference sends (power-of-two N >= 64)
+to `LmlTapeFused` and the rest through `cov_matrix_diff`. Kernel 5's
+in-tape L^-1 mode has no caller in the port and is not ported
+(ROADMAP.md). `launches`, `unfused_launches` and `slot_launches` count the
+launches of `cov_tape_bwd`, `cov_grads_tape` and `cov_grads`, and nothing
+else.
 """
 
 from __future__ import annotations
@@ -32,6 +46,8 @@ from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops import chol, cov, kinv
 
 launches = 0
+unfused_launches = 0
+slot_launches = 0
 
 TILE = 32   # csrc/cov_tape_bwd.cu kTile
 
@@ -104,6 +120,132 @@ def _launch(node_type, params_t, ts, mask, kinv_lower, beta, g, depth_cap):
     _build.check("autogp_cov_tape_bwd", err)
     launches += 1
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
+
+
+def cov_grads_plain(node_type, params_t, kbar, ts, mask, depth_cap: int,
+                    masked: bool = True):
+    """Plain version of `cov_grads_tape` and `cov_grads`: the
+    vector-Jacobian product of `cov.cov_matrix_plain` with kbar."""
+    with torch.enable_grad():
+        par = params_t.detach().requires_grad_(True)
+        nz = torch.zeros(par.shape[0], dtype=par.dtype, device=par.device,
+                         requires_grad=True)
+        K = cov.cov_matrix_plain(node_type, par, nz, ts, mask, depth_cap,
+                                 masked)
+        pbar, nbar = torch.autograd.grad(K, (par, nz), grad_outputs=kbar)
+    return pbar, nbar
+
+
+def cov_grads_tape(node_type, params_t, kbar, ts, mask, depth_cap: int,
+                   masked: bool = True):
+    """(pbar [P, M, 3], nbar [P]): the gradient of sum_ij kbar_ij K_ij
+    with respect to params_t and the noise, K the assembled gram of
+    `cov.cov_tape` / `cov.cov_matrix`, by the tape backward in its unfused
+    mode. kbar [P, N, N] is any cotangent (no symmetry assumed); with
+    `masked` it is multiplied by mask_i mask_j. Any N. CUDA tensors launch
+    the kernel (float32, or it raises), CPU tensors take
+    `cov_grads_plain`."""
+    if not backend.on_cuda(params_t):
+        return cov_grads_plain(node_type, params_t, kbar, ts, mask,
+                               depth_cap, masked)
+    return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
+                         masked, tape=True)
+
+
+def cov_grads(node_type, params_t, kbar, ts, mask, depth_cap: int,
+              masked: bool = True):
+    """The contract of `cov_grads_tape`, by the per-slot backward (all M
+    heap slots swept forward, then in reverse)."""
+    if not backend.on_cuda(params_t):
+        return cov_grads_plain(node_type, params_t, kbar, ts, mask,
+                               depth_cap, masked)
+    return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
+                         masked, tape=False)
+
+
+def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
+                  tape: bool):
+    """Launch the tape backward's unfused entry or the per-slot backward
+    on a given cotangent."""
+    global unfused_launches, slot_launches
+    from autogp_tpu_torch.ops import _build
+    P, M = node_type.shape
+    N = ts.shape[0]
+    if M != (1 << depth_cap) - 1:
+        raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
+    f32 = torch.float32
+    for name, t, nd in (("params", params_t, 3), ("ts", ts, 1),
+                        ("mask", mask, 1), ("kbar", kbar, 3)):
+        backend.check_kernel_input(name, t, f32, nd)
+    if (params_t.shape != (P, M, 3) or kbar.shape != (P, N, N)
+            or mask.shape != (N,)):
+        raise ValueError("cov_grads: shapes do not match [P, M] trees on N "
+                         "points")
+    n_acc = 3 * M + 1
+    nt = -(-N // TILE)
+    dev = params_t.device
+    partial = torch.empty((P, nt * nt, n_acc), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((P, n_acc), dtype=f32, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tape:
+        tslot, ttype, tlpos, trpos, tlen = cov.build_tape(node_type,
+                                                          depth_cap)
+        err = lib.autogp_cov_tape_bwd_unfused(
+            tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
+            trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
+            ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), stream)
+        _build.check("autogp_cov_tape_bwd_unfused", err)
+        unfused_launches += 1
+    else:
+        nt32, order = cov.slot_inputs(node_type, depth_cap)
+        err = lib.autogp_cov_slot_bwd(
+            nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
+            ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), stream)
+        _build.check("autogp_cov_slot_bwd", err)
+        slot_launches += 1
+    return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
+
+
+class CovMatrixDiff(torch.autograd.Function):
+    """apply(params_t, noise, node_type, ts, mask, depth_cap, masked,
+    tape): the gram [P, N, N] of `cov_matrix_diff`."""
+
+    @staticmethod
+    def forward(ctx, params_t, noise, node_type, ts, mask, depth_cap: int,
+                masked: bool, tape: bool):
+        ctx.save_for_backward(params_t, node_type, ts, mask)
+        ctx.opts = (depth_cap, masked, tape)
+        if not tape:
+            return cov.cov_matrix(node_type, params_t, noise, ts, mask,
+                                  depth_cap, masked)
+        m = mask if masked else torch.ones_like(mask)
+        return cov.cov_tape(node_type, params_t, noise, ts, ts, m, m,
+                            depth_cap, gram=True, lower_only=False)
+
+    @staticmethod
+    def backward(ctx, kbar):
+        params_t, node_type, ts, mask = ctx.saved_tensors
+        depth_cap, masked, tape = ctx.opts
+        grads = cov_grads_tape if tape else cov_grads
+        pbar, nbar = grads(node_type, params_t, kbar.contiguous(), ts, mask,
+                           depth_cap, masked)
+        return pbar, nbar, None, None, None, None, None, None
+
+
+def cov_matrix_diff(node_type, params_t, noise, ts, mask, depth_cap: int,
+                    masked: bool = True, tape: bool = True):
+    """Differentiable assembly [P, N, N] = eval_cov(tree)(ts, ts) +
+    noise I, padded rows and columns the identity when `masked`
+    (cov_pallas_vjp.py:741-768). Forward: the tape kernel (`tape=True`) or
+    the per-slot kernel; backward: `cov_grads_tape` or `cov_grads`.
+    Differentiable in (params_t, noise); node_type, ts and mask are
+    constants."""
+    return CovMatrixDiff.apply(params_t, noise, node_type, ts, mask,
+                               depth_cap, masked, tape)
 
 
 class LmlTapeFused(torch.autograd.Function):

@@ -1,10 +1,15 @@
-"""Where the time of the config-4 fit goes, on one NVIDIA GPU.
+"""Where the time of a fit goes, on one NVIDIA GPU.
 
-    python3 -m autogp_tpu_torch.utils.profile_fit
+    python3 -m autogp_tpu_torch.utils.profile_fit [config4|online32]
 
-Runs the fit of chip_smoke.py's end-to-end phase (64 particles, a
-synthetic N = 1024 series, linear_schedule(1024, .25), n_mcmc=10,
-n_hmc=10) three times after a warm-up fit:
+`config4` (the default) is the fit of chip_smoke.py's end-to-end phase (64
+particles, a synthetic N = 1024 series, linear_schedule(1024, .25),
+n_mcmc=10, n_hmc=10). `online32` is the start of its online phase: 128
+particles, the per-point schedule 1, 2, ..., 8 on the first 8 points of
+that phase's series (every round in the 32-point bucket, where the
+gradient takes the dense route), n_mcmc=5, n_hmc=5, n_exit=1, depth cap 5,
+without the logging callback. The fit runs three times after a warm-up
+fit:
 
 1. plain, timed with CUDA events;
 2. with host timers (each followed by a synchronize) around the MH step,
@@ -33,10 +38,11 @@ import numpy as np
 import torch
 
 
-def _series(n: int):
-    """chip_smoke.py's synthetic series (the same numpy draws)."""
+def _series(n: int, skip: int):
+    """chip_smoke.py's synthetic series: the same numpy draws, after the
+    `skip` draws the script makes before them."""
     rng = np.random.default_rng(0)
-    rng.standard_normal(n)          # chip_smoke.py's phase-4 draw
+    rng.standard_normal(skip)
     t = np.arange(n, dtype=np.float64)
     y = (0.02 * t + 3.0 * np.sin(2 * np.pi * t / 52.0)
          + 1.5 * np.sin(2 * np.pi * t / 13.0)
@@ -44,11 +50,27 @@ def _series(n: int):
     return t, y
 
 
-def _fit(A, t, y, seed):
+def _workload(A, name: str):
+    """(t, y, GPModel keywords, fit_smc keywords) of a named fit."""
+    if name == "config4":
+        t, y = _series(1024, skip=1024)
+        return t, y, {"n_particles": 64}, {
+            "schedule": A.Schedule.linear_schedule(1024, 0.25),
+            "n_mcmc": 10, "n_hmc": 10}
+    if name == "online32":
+        t, y = _series(544, skip=0)
+        return t[:8], y[:8], {
+            "n_particles": 128, "config": A.GPConfig(max_depth=5)}, {
+            "schedule": list(range(1, 9)), "n_mcmc": 5, "n_hmc": 5,
+            "shuffle": False, "hmc_config": {"n_exit": 1}}
+    raise SystemExit(f"unknown workload {name!r}: config4 or online32")
+
+
+def _fit(A, work, seed, **override):
+    t, y, model_kw, fit_kw = work
     A.seed(seed)
-    m = A.GPModel(t, y, n_particles=64)
-    A.fit_smc(m, schedule=A.Schedule.linear_schedule(len(t), 0.25),
-              n_mcmc=10, n_hmc=10)
+    m = A.GPModel(t, y, **model_kw)
+    A.fit_smc(m, **{**fit_kw, **override})
     torch.cuda.synchronize()
     return m
 
@@ -63,18 +85,15 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t, y = _series(1024)
-    A.seed(0)
-    warm = A.GPModel(t, y, n_particles=64)
-    A.fit_smc(warm, schedule=A.Schedule.linear_schedule(1024, .25),
-              n_mcmc=1, n_hmc=1)
-    torch.cuda.synchronize()
-    out = {"device": torch.cuda.get_device_name(0)}
+    name = sys.argv[1] if len(sys.argv) > 1 else "config4"
+    work = _workload(A, name)
+    _fit(A, work, seed=0, n_mcmc=1, n_hmc=1)      # warm-up
+    out = {"workload": name, "device": torch.cuda.get_device_name(0)}
 
     # 1. plain
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    m = _fit(A, t, y, seed=1)
+    m = _fit(A, work, seed=1)
     ev[1].record()
     ev[1].synchronize()
     out["fit_ms"] = ev[0].elapsed_time(ev[1])
@@ -102,7 +121,7 @@ def main():
     hmc.params_trajectory = timed("param_trajectory", saved[1])
     hmc.noise_trajectory = timed("noise_trajectory", saved[2])
     t0 = time.perf_counter()
-    _fit(A, t, y, seed=1)
+    _fit(A, work, seed=1)
     total = time.perf_counter() - t0
     smc.moves.tree_rejuvenation_step, hmc.params_trajectory, \
         hmc.noise_trajectory = saved
@@ -118,7 +137,7 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _fit(A, t, y, seed=1)
+        _fit(A, work, seed=1)
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
     # Kernel rows only: an op row's device time repeats its kernels'.

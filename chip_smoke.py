@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SMC path, HMC included, once on one NVIDIA GPU.
+"""Drive the PyTorch port's SMC and online-forecasting paths, HMC included,
+once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -31,9 +32,11 @@ back to the CPU):
      for the parameter and the noise gradients; two runs bitwise equal;
   7. grad -- LmlTapeFused on the 64 prior particles at N = 1024: the value
      under grad torch.equal to the value-only LML; the z-space gradient
-     against float64 CPU autograd through the plain dense path, normwise
+     against float64 autograd through the plain dense path, normwise
      relative <= 1e-2 on particles whose f64 gram has condition number
-     < 1e5 (the rest reported); a step along the gradient raises every
+     < 1e5 (the rest reported); that reference runs on the card (64
+     particles at N = 1024 take the host minutes) and is held to float64
+     CPU autograd on the first 4 particles (<= 1e-8); a step along the gradient raises every
      particle's LML that stays finite; the K0 noise gradient likewise;
   8. end to end: config 4 -- GPModel(n_particles=64) on a synthetic
      N = 1024 series, fit_smc(linear_schedule(1024, .25), n_mcmc=10,
@@ -43,7 +46,36 @@ back to the CPU):
      kinv_beta_strips, counted apart); finiteness, validate_particles with
      round trips,
      and a float64 CPU re-evaluation of the top particles' LMLs and
-     predictions.
+     predictions;
+  9. kernel 6 (per-slot assembly) at [64, 1024, 1024] on the phase-3
+     trees: against its plain version (normwise <= 1e-5), against the
+     plain version in f64 (<= 1e-3) and bitwise against kernel 1's gram;
+ 10. bwd_unfused and kernel 7 (the tape backward's unfused entry and the
+     per-slot backward) at [64, 1024, 1024] on the same trees and a fixed
+     random non-symmetric cotangent: against the plain version in f64 on
+     the same inputs, per particle max|err| / max|ref| <= 1e-3 (parameter)
+     and <= 1e-5 (noise); two runs bitwise equal;
+ 11. dense_grad -- cov_matrix_diff + mvn_logpdf_masked_cvjp with tape=True
+     and tape=False at N = 32 and N = 1024 on the 64 prior particles: the
+     value torch.equal to the value path; the two forms' gradients against
+     each other (<= 1e-3) and against float64 CPU autograd (gate 1e-2 on
+     grams of condition < 1e5 at N = 32, where the fits take this route;
+     reported with the condition numbers at N = 1024, against phase 7's
+     reference); model.lml under grad
+     at N = 200 (dense route, ragged last panel) likewise, and the ragged
+     factorization against the f64 factor (<= 1e-4). The launches of kernels 6
+     and 7 on this path are counted here;
+ 12. online: config 5's widths (P = 128, n_mcmc = 5, n_hmc = 5, depth cap
+     5, n_exit = 1) through autogp_tpu_torch.scripts.online.main on a
+     synthetic 544-point CSV (numpy seed 0: 512 train, 32 test, 100
+     future points), the environment set as a user would set it and the
+     schedule 1, 2, ..., 34, 64, 128, 256, 512 passed to main (the
+     SCHEDULE_STEP variable gives a stride only); one gp.NNN file per step
+     with finite predictions and logp_test; the unfused backward launches
+     in the rounds at bucket 32 and never afterwards, the fused one the
+     other way round; then add_data of 16 points, maybe_resample,
+     mcmc_structure(n_mcmc=5, n_hmc=5), predict_proba, and the top-8
+     check against float64 on the CPU.
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
@@ -85,8 +117,18 @@ def fail(msg):
     sys.exit(1)
 
 
+_T_START = time.perf_counter()
+_t_phase = _T_START
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """Print a phase's result with the seconds it took and the script's
+    seconds so far (host clock)."""
+    global _t_phase
+    now = time.perf_counter()
+    print(f"[{name}] {msg} [{now - _t_phase:.1f} s, {now - _T_START:.1f} s "
+          f"so far]", flush=True)
+    _t_phase = now
 
 
 def bound(flops, sfu, nbytes):
@@ -128,19 +170,28 @@ def device_ms(torch, fn, names, reps):
     """Mean device milliseconds per call of fn spent in the CUDA kernels
     whose names contain one of `names`, over `reps` calls
     (torch.profiler/CUPTI): the kernels alone, without their wrapper's
-    host work and glue ops."""
+    host work and glue ops. Each kernel's mean time is weighted by its
+    launches per call, so a launch the profiler did not record cannot
+    lower the result. The profiler now and then records none of a
+    kernel's launches: the profile is then taken again, and after five
+    such profiles the result is NaN (printed as nan, null in the kernels
+    line), which fails no phase: the wrapper's time is the one the
+    contract asks for."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if any(n in e.key for n in names)]
-    if not evs:
-        fail(f"profiler saw no launches of {names}")
-    return sum(e.self_device_time_total for e in evs) / reps / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if any(n in e.key for n in names)]
+        if all(any(n in e.key for e in evs) for n in names):
+            return sum(e.self_device_time_total / e.count
+                       * max(1, round(e.count / reps)) for e in evs) / 1e3
+    return float("nan")
 
 
 def normwise_rel(a, b):
@@ -152,6 +203,33 @@ def per_particle_rel(a, b):
     num = (a.double() - b.double()).abs().flatten(1).amax(1)
     den = b.double().abs().flatten(1).amax(1)
     return num / den
+
+
+def top8_vs_f64_cpu(A, np, torch, model, df, ds_pred, quantiles, y_range):
+    """Re-evaluate the 8 heaviest live particles of `model` in float64 on
+    the CPU (plain path): (LML rel err, prediction err / y range) against
+    the card's LMLs and the predictions `df` of A.predict(model, ds_pred,
+    quantiles)."""
+    from autogp_tpu_torch.inference import smc
+    p = model.particles
+    P, n_pred = model.num_particles, len(ds_pred)
+    w = model.particle_weights()
+    alive = (p.lml > smc.BAD_LML).cpu().numpy()
+    top = [i for i in np.argsort(-w) if alive[i]][:8]
+    d = A.to_dict(model)
+    for key in ("kernels", "noise_zs", "noises"):
+        d[key] = [d[key][i] for i in top]
+    d["pf_state"]["log_weights"] = [d["pf_state"]["log_weights"][i]
+                                    for i in top]
+    ref = A.from_dict(d, device="cpu", dtype=torch.float64)
+    lml_gpu = p.lml[torch.as_tensor(top, device=p.lml.device)].double().cpu()
+    lml_rel = float(((lml_gpu - ref.particles.lml).abs()
+                     / ref.particles.lml.abs()).max())
+    cols = ["y_mean"] + [f"y_{q}" for q in quantiles]
+    df_ref = A.predict(ref, ds_pred, quantiles=quantiles)
+    got = df[cols].to_numpy().reshape(P, n_pred, len(cols))[top]
+    want = df_ref[cols].to_numpy().reshape(len(top), n_pred, len(cols))
+    return lml_rel, float(np.abs(got - want).max() / y_range)
 
 
 def main():
@@ -375,7 +453,7 @@ def main():
         a_s, wd_s, L_s), kinv_names, 5)
     st_ms = cuda_ms(torch, lambda: kinv.linv_stats_wd(L_s, a_s, wd_s), 10)
     st_dev_ms = device_ms(torch, lambda: kinv.linv_stats_wd(
-        L_s, a_s, wd_s), kinv_names, 5)
+        L_s, a_s, wd_s), ("linv_kernel", "fro_sum_kernel"), 5)
     kv_plain_ms = cuda_ms(torch, lambda: kinv.kinv_beta_plain(L_s, a_s), 3)
     st_plain_ms = cuda_ms(torch, lambda: kinv.linv_stats_plain(L_s, a_s), 3)
 
@@ -445,7 +523,7 @@ def main():
         nt, pt, ts, mask, Ki_c, beta_c, g1, D), 5)
     bw_dev_ms = device_ms(torch, lambda: cov_vjp.cov_tape_bwd(
         nt, pt, ts, mask, Ki_c, beta_c, g1, D),
-        ("cov_tape_bwd_kernel", "cov_tape_bwd_reduce"), 3)
+        ("cov_tape_bwd_kernel", "reduce_tiles_kernel"), 3)
     t0 = time.perf_counter()
     plain_bwd(f32, 8)
     torch.cuda.synchronize()
@@ -478,35 +556,57 @@ def main():
         fail("LmlTapeFused value under grad differs from the value path")
     torch.set_num_threads(os.cpu_count() or 1)
     tab64 = M.prior_tables(cfg, "cpu", f64)
-    ts64, m64 = ts.double().cpu(), mask.double().cpu()
-    xm64 = (xs_main.double().cpu() * m64)
-    vr, gpr, gnr, conds = [], [], [], []
-    for s in range(0, P_MAIN, 2):
-        sl = slice(s, s + 2)
-        ntc = nt[sl].cpu()
-        pzc = pz[sl].double().cpu().requires_grad_(True)
-        nzc = noise_z[sl].double().cpu().requires_grad_(True)
-        Kd = cov.cov_tape_plain(ntc, M.transform_params(ntc, pzc, tab64),
-                                M.transform_noise(nzc, cfg), ts64, ts64, m64,
-                                m64, D, True, False)
-        Ld, info = torch.linalg.cholesky_ex(Kd)
-        ad = torch.linalg.solve_triangular(
-            Ld, xm64.expand(2, -1)[..., None], upper=False)[..., 0]
-        v = -0.5 * (m64.sum() * math.log(2 * math.pi)
-                    + 2 * (torch.log(torch.diagonal(Ld, dim1=1, dim2=2))
-                           * m64).sum(1) + (ad * ad).sum(1))
-        g_p, g_n = torch.autograd.grad(v.sum(), (pzc, nzc))
-        bad = info > 0
-        vr.append(torch.where(bad, float("nan"), v.detach()))
-        gpr.append(g_p)
-        gnr.append(g_n)
-        ev = torch.linalg.eigvalsh(Kd.detach())
-        conds.append(torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0],
-                                 float("inf")))
-        del Kd, Ld
-    vr, gpr, gnr, conds = (torch.cat(x) for x in (vr, gpr, gnr, conds))
+    tab64_card = M.prior_tables(cfg, dev, f64)
+
+    def f64_reference(ts_, xs_, mask_, chunk, ref_dev="cpu", count=P_MAIN):
+        """(LML [count], z-space gradient [count, 3M + 1], condition number
+        [count]) of the first `count` prior particles by float64 autograd
+        through the plain dense path on `ref_dev`; returned on the CPU."""
+        tab_r = tab64 if ref_dev == "cpu" else tab64_card
+        ts64, m64 = ts_.double().to(ref_dev), mask_.double().to(ref_dev)
+        xm64 = xs_.double().to(ref_dev) * m64
+        vr, gr, conds = [], [], []
+        for s in range(0, count, chunk):
+            sl = slice(s, min(s + chunk, count))
+            ntc = nt[sl].to(ref_dev)
+            pzc = pz[sl].double().to(ref_dev).requires_grad_(True)
+            nzc = noise_z[sl].double().to(ref_dev).requires_grad_(True)
+            Kd = cov.cov_tape_plain(
+                ntc, M.transform_params(ntc, pzc, tab_r),
+                M.transform_noise(nzc, cfg), ts64, ts64, m64, m64, D, True,
+                False)
+            Ld, info = torch.linalg.cholesky_ex(Kd)
+            ad = torch.linalg.solve_triangular(
+                Ld, xm64.expand(len(ntc), -1)[..., None],
+                upper=False)[..., 0]
+            v = -0.5 * (m64.sum() * math.log(2 * math.pi)
+                        + 2 * (torch.log(torch.diagonal(Ld, dim1=1, dim2=2))
+                               * m64).sum(1) + (ad * ad).sum(1))
+            g_p, g_n = torch.autograd.grad(v.sum(), (pzc, nzc))
+            vr.append(torch.where(info > 0, float("nan"), v.detach()).cpu())
+            gr.append(torch.cat([g_p.flatten(1), g_n[:, None]], 1).cpu())
+            ev = torch.linalg.eigvalsh(Kd.detach())
+            conds.append(torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0],
+                                     float("inf")).cpu())
+            del Kd, Ld
+        return torch.cat(vr), torch.cat(gr), torch.cat(conds)
+
+    # At N = 1024 the plain path in float64 takes the host minutes for 64
+    # particles, so the reference runs on the card (the same plain PyTorch
+    # code, no hand-written kernel in it) and is anchored to float64 CPU
+    # autograd on the first 4 particles.
+    vr, g_r, conds = f64_reference(ts, xs_main, mask, 4, dev)
+    vr_c, g_r_c, _ = f64_reference(ts, xs_main, mask, 2, "cpu", count=4)
+    fin_c = (torch.isfinite(vr_c) & torch.isfinite(g_r_c).all(1)
+             & (conds[:4] < 1e5))
+    anchor = max(float(per_particle_rel(g_r[:4], g_r_c)[fin_c].max()),
+                 float(((vr[:4] - vr_c).abs() / vr_c.abs())[fin_c].max())
+                 ) if fin_c.any() else float("nan")
+    if not anchor <= 1e-8:
+        fail(f"grad: float64 reference on the card vs float64 CPU autograd "
+             f"on {int(fin_c.sum())} of the first 4 particles: {anchor:.3e}")
+    gnr = g_r[:, -1]
     g_k = torch.cat([gp.flatten(1), gn[:, None]], 1).double().cpu()
-    g_r = torch.cat([gpr.flatten(1), gnr[:, None]], 1)
     fin_g = (torch.isfinite(vr) & torch.isfinite(g_r).all(1)
              & torch.isfinite(g_k).all(1))
     e_g = per_particle_rel(g_k, g_r)
@@ -514,7 +614,7 @@ def main():
     if int(well.sum()) < 8:
         fail(f"grad: only {int(well.sum())} well-conditioned particles")
     if not float(e_g[well].max()) <= 1e-2:
-        fail(f"grad vs f64 CPU autograd: worst {float(e_g[well].max()):.3e}"
+        fail(f"grad vs f64 autograd: worst {float(e_g[well].max()):.3e}"
              f" on a particle with cond < 1e5")
     rest = fin_g & ~well
     # A step along the gradient must raise every LML that stays finite.
@@ -538,7 +638,9 @@ def main():
         fail(f"K0 noise gradient vs f64: value {float(e_nv[ok_n].max()):.3e}"
              f", grad {float(e_ng[ok_n].max()):.3e}")
     phase("grad", f"LmlTapeFused value under grad torch.equal to the value "
-          f"path; z-space gradient vs f64 CPU autograd: worst normwise rel "
+          f"path; z-space gradient vs float64 autograd through the plain "
+          f"path on the card (which agrees with float64 CPU autograd on the "
+          f"first 4 particles to {anchor:.3e}, gate 1e-8): worst normwise rel "
           f"{float(e_g[well].max()):.3e} (median "
           f"{float(e_g[well].median()):.3e}) on {int(well.sum())} particles with cond < 1e5 (gate 1e-2); "
           f"{int(rest.sum())} more finite with cond >= 1e5: worst "
@@ -598,23 +700,8 @@ def main():
         fail("non-finite LML, weight or log-ML estimate")
     smc.validate_particles(p, model.config, tables=model.tables)
 
-    # Float64 CPU re-evaluation of the 8 heaviest particles (plain path).
-    alive = (p.lml > smc.BAD_LML).cpu().numpy()
-    top = [i for i in np.argsort(-w) if alive[i]][:8]
-    d = A.to_dict(model)
-    d["kernels"] = [d["kernels"][i] for i in top]
-    d["noise_zs"] = [d["noise_zs"][i] for i in top]
-    d["noises"] = [d["noises"][i] for i in top]
-    d["pf_state"]["log_weights"] = [d["pf_state"]["log_weights"][i]
-                                    for i in top]
-    ref = A.from_dict(d, device="cpu", dtype=f64)
-    lml_gpu = p.lml[torch.as_tensor(top, device=dev)].double().cpu()
-    lml_rel = float(((lml_gpu - ref.particles.lml).abs()
-                     / ref.particles.lml.abs()).max())
-    df_ref = A.predict(ref, ds_future, quantiles=[.1, .5, .9])
-    got = df[cols].to_numpy().reshape(P_MAIN, 32, 4)[top]
-    want = df_ref[cols].to_numpy().reshape(8, 32, 4)
-    pred_err = float(np.abs(got - want).max() / (y.max() - y.min()))
+    lml_rel, pred_err = top8_vs_f64_cpu(A, np, torch, model, df, ds_future,
+                                        [.1, .5, .9], y.max() - y.min())
     if not (lml_rel <= 1e-3 and pred_err <= 1e-3):
         fail(f"f32 card vs f64 CPU on the top particles: LML rel "
              f"{lml_rel:.3e}, predict err / y-range {pred_err:.3e}")
@@ -632,11 +719,363 @@ def main():
           f"CPU: LML rel {lml_rel:.3e}, predict err / y-range "
           f"{pred_err:.3e}; validate_particles ok")
 
+    del model, df
+
+    # ---- 9. kernel 6: per-slot assembly -------------------------------
+    def chunked(fn, chunk):
+        outs = [fn(slice(s, s + chunk)) for s in range(0, P_MAIN, chunk)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+
+    K6 = cov.cov_matrix(nt, pt, noise, ts, mask, D, masked=True)
+    K6p = cov.cov_matrix_plain(nt, pt, noise, ts, mask, D, True)
+    K1 = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, gram=True)
+    torch.cuda.synchronize()
+    slot_rel = normwise_rel(K6, K6p)
+    slot_err = float((K6 - K6p).abs().max())
+    slot_eq_tape = torch.equal(K6, K1)
+    del K6p, K1
+    K6r = chunked(lambda sl: cov.cov_matrix_plain(
+        nt[sl], pt[sl].double(), noise[sl].double(), ts.double(),
+        mask.double(), D, True), 8)
+    slot_rel64 = normwise_rel(K6, K6r)
+    del K6, K6r
+    if not (slot_rel <= 1e-5 and slot_rel64 <= 1e-3 and slot_eq_tape):
+        fail(f"kernel 6: vs plain {slot_rel:.3e}, vs f64 {slot_rel64:.3e}, "
+             f"bitwise equal to kernel 1: {slot_eq_tape}")
+
+    def run_slot():
+        return cov.cov_matrix(nt, pt, noise, ts, mask, D, masked=True)
+    slot_ms = cuda_ms(torch, run_slot, 20)
+    slot_dev_ms = device_ms(torch, run_slot, ("cov_slot_kernel",), 10)
+    slot_plain_ms = cuda_ms(torch, lambda: cov.cov_matrix_plain(
+        nt, pt, noise, ts, mask, D, True), 3)
+    # Needed work: the active nodes on every element of the active square
+    # (no symmetry is used); every element of the output written once.
+    n_sq = n_act * n_act
+    slot_bound = bound(sum(c[0] for c in fwd) * n_sq,
+                       sum(c[1] for c in fwd) * n_sq,
+                       P_MAIN * N_MAIN * N_MAIN * 4)
+    phase("kernel6", f"cov_slot ok at [64, 1024, 1024]: normwise rel vs "
+          f"plain {slot_rel:.3e} (gate 1e-5, max abs {slot_err:.3e}), vs "
+          f"plain f64 {slot_rel64:.3e} (gate 1e-3), bitwise equal to kernel "
+          f"1's gram; ms (wrapper, kernel alone, plain) ({slot_ms:.4f}, "
+          f"{slot_dev_ms:.4f}, {slot_plain_ms:.4f}), bound "
+          f"{slot_bound[0]:.4f} ms ({slot_bound[1]})")
+
+    # ---- 10. bwd_unfused (kernel 5b) and kernel 7 ----------------------
+    kbar = torch.randn(P_MAIN, N_MAIN, N_MAIN, generator=gen, device=dev)
+    pr, nr = chunked(lambda sl: cov_vjp.cov_grads_plain(
+        nt[sl], pt[sl].double(), kbar[sl].double(), ts.double(),
+        mask.double(), D, True), 4)
+    ok_g = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    if int(ok_g.sum()) < P_MAIN // 2:
+        fail(f"cov_grads: only {int(ok_g.sum())} particles with a finite "
+             f"f64 reference")
+    t0 = time.perf_counter()
+    chunked(lambda sl: cov_vjp.cov_grads_plain(
+        nt[sl], pt[sl], kbar[sl], ts, mask, D, True), 8)
+    torch.cuda.synchronize()
+    grads_plain_ms = (time.perf_counter() - t0) * 1e3
+    # Needed work: forward and backward sweep of the active nodes plus the
+    # mask product on every element of the active square; the active
+    # square of the cotangent read once.
+    given_c = [(f[0] + b[0] + 2, f[1] + b[1]) for f, b in zip(
+        fwd, tape_cost(nt, D, BWD_COST))]
+    given_bound = bound(sum(c[0] for c in given_c) * n_sq,
+                        sum(c[1] for c in given_c) * n_sq,
+                        4 * P_MAIN * n_sq)
+    given = {}
+    for name, fn, knames in (
+            ("bwd_unfused", cov_vjp.cov_grads_tape,
+             ("cov_tape_bwd_kernel", "reduce_tiles_kernel")),
+            ("kernel7", cov_vjp.cov_grads,
+             ("cov_slot_bwd_kernel", "reduce_tiles_kernel"))):
+        def run_given():
+            return fn(nt, pt, kbar, ts, mask, D, masked=True)
+        pb_g, nb_g = run_given()
+        pb_g2, nb_g2 = run_given()
+        torch.cuda.synchronize()
+        if not (torch.equal(pb_g, pb_g2) and torch.equal(nb_g, nb_g2)):
+            fail(f"{name}: two runs on the same inputs differ")
+        e_p = per_particle_rel(pb_g, pr)[ok_g]
+        e_n = ((nb_g.double() - nr).abs() / nr.abs().clamp_min(1.0))[ok_g]
+        if not (float(e_p.max()) <= 1e-3 and float(e_n.max()) <= 1e-5):
+            fail(f"{name} vs f64 plain on the same cotangent: worst pbar "
+                 f"{float(e_p.max()):.3e}, nbar {float(e_n.max()):.3e}")
+        given[name] = (float((pb_g.double() - pr).abs()[ok_g].max()),
+                       cuda_ms(torch, run_given, 5),
+                       device_ms(torch, run_given, knames, 3))
+        phase(name, f"{fn.__name__} ok at [64, 1024, 1024] on a random "
+              f"non-symmetric cotangent ({int(ok_g.sum())} particles with a "
+              f"finite f64 reference): per-particle max|err| / max|ref| "
+              f"worst pbar {float(e_p.max()):.3e} (median "
+              f"{float(e_p.median()):.3e}; gate 1e-3), nbar "
+              f"{float(e_n.max()):.3e} (gate 1e-5), max abs pbar err "
+              f"{given[name][0]:.3e}; two runs bitwise equal; ms (wrapper, "
+              f"kernels alone, plain f32 in chunks of 8) "
+              f"({given[name][1]:.4f}, {given[name][2]:.4f}, "
+              f"{grads_plain_ms:.4f}), bound {given_bound[0]:.4f} ms "
+              f"({given_bound[1]})")
+    del kbar, pr
+
+    # ---- 11. dense_grad: cov_matrix_diff + mvn_logpdf_masked_cvjp -------
+    from autogp_tpu_torch import gp_math
+
+    def dense_route(ts_, xs_, mask_, tape):
+        """(LML [P], z-space gradient [P, 3M + 1]) by the dense route."""
+        pzg = pz.clone().requires_grad_(True)
+        nzg = noise_z.clone().requires_grad_(True)
+        Kd = cov_vjp.cov_matrix_diff(
+            nt, M.transform_params(nt, pzg, tab),
+            M.transform_noise(nzg, cfg), ts_, mask_, D, masked=True,
+            tape=tape)
+        v = gp_math.mvn_logpdf_masked_cvjp(Kd, xs_, mask_, True)
+        g_p, g_n = torch.autograd.grad(v.sum(), (pzg, nzg))
+        return v.detach(), torch.cat([g_p.flatten(1), g_n[:, None]], 1)
+
+    def against_f64(g_card, v_ref, g_ref, cond):
+        """Normwise relative error per particle against the float64 reference
+        gradient, and the masks of well- and ill-conditioned particles
+        with finite values on both sides."""
+        g_c = g_card.double().cpu()
+        fin = (torch.isfinite(v_ref) & torch.isfinite(g_ref).all(1)
+               & torch.isfinite(g_c).all(1))
+        return (per_particle_rel(g_c, g_ref), fin & (cond < 1e5),
+                fin & ~(cond < 1e5))
+
+    for mod, attr in ((cov, "slot_launches"), (cov_vjp, "slot_launches"),
+                      (cov_vjp, "unfused_launches")):
+        setattr(mod, attr, 0)
+    dense_msgs = []
+    for N in (32, N_MAIN):
+        if N == N_MAIN:
+            ts_d, mask_d, xs_d = ts, mask, xs_main
+            v_val, (v_ref, g_ref, cond) = lml_k, (vr, g_r, conds)
+        else:
+            ts_d, mask_d = grid(N, N * 3 // 4)
+            xs_d = torch.sin(9.0 * ts_d) * mask_d
+            v_val = M.lml(nt, pz, noise_z, ts_d, xs_d, mask_d, cfg, tab)
+            v_ref, g_ref, cond = f64_reference(ts_d, xs_d, mask_d, 64)
+        v_t, g_t = dense_route(ts_d, xs_d, mask_d, tape=True)
+        v_s, g_s = dense_route(ts_d, xs_d, mask_d, tape=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(v_t, v_val) and torch.equal(v_s, v_val)):
+            fail(f"dense_grad N={N}: the value under grad differs from the "
+                 f"value path")
+        both = torch.isfinite(g_t).all(1) & torch.isfinite(g_s).all(1)
+        forms = float(per_particle_rel(g_s[both], g_t[both]).max())
+        if not forms <= 1e-3:
+            fail(f"dense_grad N={N}: tape and per-slot gradients differ by "
+                 f"{forms:.3e}")
+        e_d, well_d, rest_d = against_f64(g_t, v_ref, g_ref, cond)
+        worst_well = float(e_d[well_d].max()) if well_d.any() else 0.0
+        if N == 32 and not (int(well_d.sum()) >= 8 and worst_well <= 1e-2):
+            fail(f"dense_grad N=32 vs f64 CPU autograd: worst "
+                 f"{worst_well:.3e} on {int(well_d.sum())} particles with "
+                 f"cond < 1e5")
+        dense_msgs.append(
+            f"N={N}: value torch.equal to the value path for both forms; "
+            f"tape vs per-slot gradient {forms:.3e} (gate 1e-3); dense "
+            f"route vs f64 {'CPU autograd' if N == 32 else 'autograd on the card'}"
+            f" worst {worst_well:.3e} (median "
+            f"{float(e_d[well_d].median()) if well_d.any() else 0.0:.3e}) "
+            f"on {int(well_d.sum())} particles with cond < 1e5 (largest "
+            f"{float(cond[well_d].max()) if well_d.any() else 0.0:.3e})"
+            + (" (gate 1e-2)" if N == 32 else " (reported, no gate)")
+            + f", worst {float(e_d[rest_d].max()) if rest_d.any() else 0.0:.3e}"
+            f" on {int(rest_d.sum())} more with cond >= 1e5")
+    dense_launches = {"cov_slot": cov.slot_launches,
+                      "cov_slot_bwd": cov_vjp.slot_launches}
+    if min(dense_launches.values()) <= 0 or cov_vjp.unfused_launches <= 0:
+        fail(f"dense_grad: a kernel of the path never launched: "
+             f"{dense_launches}, unfused {cov_vjp.unfused_launches}")
+    # model.lml at N = 200: the dense route with a ragged last panel.
+    ts_r, mask_r = grid(200, 150)
+    xs_r = torch.sin(9.0 * ts_r) * mask_r
+    v_r0 = M.lml(nt, pz, noise_z, ts_r, xs_r, mask_r, cfg, tab)
+    pzg = pz.clone().requires_grad_(True)
+    nzg = noise_z.clone().requires_grad_(True)
+    v_rg = M.lml(nt, pzg, nzg, ts_r, xs_r, mask_r, cfg, tab)
+    g_rp, g_rn = torch.autograd.grad(v_rg.sum(), (pzg, nzg))
+    if not torch.equal(v_rg.detach(), v_r0):
+        fail("dense_grad N=200: value under grad differs from the value path")
+    e_r, well_r, rest_r = against_f64(
+        torch.cat([g_rp.flatten(1), g_rn[:, None]], 1),
+        *f64_reference(ts_r, xs_r, mask_r, 16))
+    if not (int(well_r.sum()) >= 8 and float(e_r[well_r].max()) <= 1e-2):
+        fail(f"dense_grad N=200 vs f64 CPU autograd: "
+             f"{float(e_r[well_r].max()):.3e}")
+    K64, x64 = spd(P_MAIN, 200)
+    L_r, a_r = chol.chol_solve(torch.tril(K64).float(), x64.float())
+    Lr = torch.linalg.cholesky(K64)
+    ar = torch.linalg.solve_triangular(Lr, x64[..., None],
+                                       upper=False)[..., 0]
+    ragged = (normwise_rel(L_r, Lr), normwise_rel(a_r, ar))
+    if not max(ragged) <= 1e-4:
+        fail(f"ragged factorization at N=200 vs f64 factor: {ragged}")
+    phase("dense_grad", "; ".join(dense_msgs) + f"; model.lml under grad at "
+          f"N=200 (dense route, panels 128 + 72): value torch.equal, "
+          f"gradient vs f64 worst {float(e_r[well_r].max()):.3e} on "
+          f"{int(well_r.sum())} with cond < 1e5 (gate 1e-2); ragged factor "
+          f"at N=200 vs f64 factor: L {ragged[0]:.3e}, alpha "
+          f"{ragged[1]:.3e} (gate 1e-4); launches on this path "
+          f"{dense_launches}")
+
+    # ---- 12. online: config 5's widths through the CLI ------------------
+    import tempfile
+    import pandas as pd
+    from autogp_tpu_torch.scripts import online
+    P_ON, N_TRAIN, N_TEST = 128, 512, 32
+    sched_on = list(range(1, 35)) + [64, 128, 256, 512]
+    rng_on = np.random.default_rng(0)
+    t_on = np.arange(N_TRAIN + N_TEST, dtype=np.float64)
+    y_on = (0.02 * t_on + 3.0 * np.sin(2 * np.pi * t_on / 52.0)
+            + 1.5 * np.sin(2 * np.pi * t_on / 13.0)
+            + 0.5 * rng_on.standard_normal(len(t_on)))
+    snaps = {}
+    plain_callback = online.fn_callback
+
+    def counting_callback(*, ds_test, y_test, log_dir, plot=False, **kw):
+        snaps[kw["step"]] = (cov_vjp.unfused_launches, cov_vjp.launches,
+                             kw["elapsed"])
+        return plain_callback(ds_test=ds_test, y_test=y_test,
+                              log_dir=log_dir, plot=plot, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "series.csv")
+        np.savetxt(csv, np.c_[t_on, y_on], delimiter=",")
+        os.environ.update({
+            "DATASET": csv, "TIMETYPE": "NUMERIC", "N_PARTICLES": str(P_ON),
+            "SEED": "5", "N_MCMC": "5", "N_HMC": "5", "N_HMC_EXIT": "1",
+            "MAX_DEPTH": "5", "CHANGEPOINTS": "1",
+            "ADAPTIVE_RESAMPLING": "1", "SHUFFLE": "0",
+            "N_TEST": str(N_TEST), "N_FUTURE": "100"})
+        for mod, attr in (*counters.values(), (cov, "slot_launches"),
+                          (cov_vjp, "slot_launches"),
+                          (cov_vjp, "unfused_launches")):
+            setattr(mod, attr, 0)
+        online.fn_callback = counting_callback
+        sys.stdout.flush()
+        real_stdout, sys.stdout = sys.stdout, open(os.devnull, "w")
+        try:
+            t0 = time.perf_counter()
+            m_on = online.main(schedule=sched_on,
+                               log_root=os.path.join(tmp, "logs"))
+            torch.cuda.synchronize()
+            online_s = time.perf_counter() - t0
+        finally:
+            sys.stdout.close()
+            sys.stdout = real_stdout
+            online.fn_callback = plain_callback
+        (log_dir,) = os.listdir(os.path.join(tmp, "logs"))
+        log_dir = os.path.join(tmp, "logs", log_dir)
+        want_files = [f"gp.{s:03d}" for s in [0] + sched_on]
+        got_files = sorted(f for f in os.listdir(log_dir)
+                           if f.startswith("gp."))
+        if got_files != want_files:
+            fail(f"online: step files {got_files} != {want_files}")
+        for s_ in [0] + sched_on:
+            dfs = pd.read_csv(os.path.join(log_dir, f"gp.{s_:03d}"))
+            if len(dfs) != P_ON * (N_TRAIN + N_TEST + 100):
+                fail(f"online: gp.{s_:03d} has {len(dfs)} rows")
+            vals = dfs[["y_mean", "y_0.025", "y_0.975", "logp_test"]]
+            if not np.isfinite(vals.to_numpy()).all():
+                fail(f"online: gp.{s_:03d} holds non-finite predictions")
+            if s_ > 0 and not (dfs["logp_test"] != 0).all():
+                fail(f"online: gp.{s_:03d} has no logp_test")
+    if m_on.device.type != "cuda" or m_on.num_particles != P_ON:
+        fail("online: the CLI's model is not the 128-particle CUDA model")
+    # The gradient route by round: unfused at bucket 32, fused afterwards.
+    rs_on = m_on.round_stats
+    prev = snaps[0]
+    step_s = {}
+    for r in rs_on:
+        cur = snaps[r["step"]]
+        d_unf, d_fus = cur[0] - prev[0], cur[1] - prev[1]
+        step_s[r["step"]] = cur[2] - prev[2]
+        small = smc.bucket_size(r["step"]) < 64
+        want_unf = small and r["hmc_sweeps"] > 0
+        want_fus = (not small) and r["hmc_sweeps"] > 0
+        if (d_unf > 0) != want_unf or (d_fus > 0) != want_fus:
+            fail(f"online: round {r['step']} (bucket "
+                 f"{smc.bucket_size(r['step'])}, {r['hmc_sweeps']} HMC "
+                 f"sweeps) launched unfused {d_unf}, fused {d_fus}")
+        prev = cur
+    unf_fit, fus_fit = prev[0], prev[1]
+    if not (unf_fit > 0 and fus_fit > 0):
+        fail(f"online: unfused {unf_fit} / fused {fus_fit} launches")
+    s32 = [step_s[s_] for s_ in sched_on if s_ <= 32]
+    fit_s = snaps[sched_on[-1]][2]
+    # Streaming: 16 more points, resample, rejuvenate, score the rest.
+    t0 = time.perf_counter()
+    A.add_data(m_on, t_on[512:528], y_on[512:528])
+    resampled_on = A.maybe_resample(m_on, P_ON / 2)
+    acc_on = A.mcmc_structure(m_on, n_mcmc=5, n_hmc=5)
+    proba = A.predict_proba(m_on, t_on[528:], y_on[528:])
+    ds_fut_on = np.arange(544, 576, dtype=np.float64)
+    df_on = A.predict(m_on, ds_fut_on, quantiles=[.025, .975])
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    online_launches = {k: getattr(mod, attr)
+                       for k, (mod, attr) in counters.items()}
+    online_launches["cov_tape_bwd_unfused"] = cov_vjp.unfused_launches
+    if min(online_launches.values()) <= 0:
+        fail(f"online: a kernel of the path never launched: "
+             f"{online_launches}")
+    if not (np.isfinite(proba["logp"]).all() and len(proba) == P_ON
+            and torch.isfinite(m_on.particles.lml).all()
+            and np.isfinite(m_on.particle_weights()).all()):
+        fail("online: non-finite predict_proba, LML or weight after "
+             "add_data + mcmc_structure")
+    smc.validate_particles(m_on.particles, m_on.config, tables=m_on.tables)
+    lml_rel_on, pred_err_on = top8_vs_f64_cpu(
+        A, np, torch, m_on, df_on, ds_fut_on, [.025, .975],
+        y_on.max() - y_on.min())
+    if not (lml_rel_on <= 1e-3 and pred_err_on <= 1e-3):
+        fail(f"online: f32 card vs f64 CPU on the top particles: LML rel "
+             f"{lml_rel_on:.3e}, predict err / y-range {pred_err_on:.3e}")
+    phase("online", f"online.main(P={P_ON}, n_mcmc=5, n_hmc=5, n_exit=1, "
+          f"depth cap 5, schedule 1..34, 64, 128, 256, 512 passed to main; "
+          f"the rest by environment variables) {online_s:.1f} s in all, "
+          f"{fit_s:.1f} s of SMC work in {len(sched_on)} rounds ("
+          f"{online_s - fit_s:.1f} s in {len(sched_on) + 1} callbacks and "
+          f"set-up); s per round at bucket 32 median "
+          f"{float(np.median(s32)):.3f} (min {min(s32):.3f}, max "
+          f"{max(s32):.3f}; steps 1/8/16/24/32 "
+          + "/".join(f"{step_s[s_]:.3f}" for s_ in (1, 8, 16, 24, 32))
+          + "), at 64/128/256/512 "
+          + "/".join(f"{step_s[s_]:.3f}" for s_ in (64, 128, 256, 512))
+          + f"; {len(want_files)} step files with finite predictions and "
+          f"logp_test; unfused backward launched in every bucket-32 round "
+          f"with HMC sweeps ({unf_fit} launches) and in no later round, "
+          f"fused in the later rounds only ({fus_fit}); HMC sweeps "
+          f"{sum(r['hmc_sweeps'] for r in rs_on)}, parameter accepts "
+          f"{sum(r['hmc_accepted'] for r in rs_on)}, MH accepts "
+          f"{sum(r['mh_accepted'] for r in rs_on)}; then add_data(16) + "
+          f"maybe_resample ({resampled_on}) + mcmc_structure(5, 5) ("
+          f"{int(acc_on.sum())} accepts) + predict_proba(16) + predict(32) "
+          f"{stream_s:.2f} s; launches {online_launches}; best LML "
+          f"{float(m_on.particles.lml.max()):.3f}, ESS "
+          f"{m_on.effective_sample_size():.2f}; top-8 vs f64 CPU: LML rel "
+          f"{lml_rel_on:.3e}, predict err / y-range {pred_err_on:.3e}; "
+          f"validate_particles ok")
+
+    # Each kernel's launches are those of the path that is its own: the
+    # config-4 fit (phase 8) for the first five, the online run (phase 12)
+    # for the unfused backward, the dense_grad drive of cov_matrix_diff(
+    # tape=False) (phase 11) for kernels 6 and 7.
+    launches.update(dense_launches)
+    launches["cov_tape_bwd_unfused"] = online_launches[
+        "cov_tape_bwd_unfused"]
+
     def entry(name, src, replaces, err, ms, dev_ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda",
                 "source": f"autogp_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "max_abs_err": err, "ms": ms,
+                "device_ms": None if math.isnan(dev_ms) else dev_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": lib_ms}
 
@@ -655,6 +1094,15 @@ def main():
         entry("cov_tape_bwd", "cov_tape_bwd.cu",
               "autogp_tpu/ops/cov_pallas_vjp.py:275", bwd_abs, bw_ms,
               bw_dev_ms, bw_plain_ms, bwd_bound, None),
+        entry("cov_slot", "cov_slot.cu", "autogp_tpu/ops/cov_pallas.py:386",
+              slot_err, slot_ms, slot_dev_ms, slot_plain_ms, slot_bound,
+              None),
+        entry("cov_tape_bwd_unfused", "cov_tape_bwd.cu",
+              "autogp_tpu/ops/cov_pallas_vjp.py:275",
+              *given["bwd_unfused"], grads_plain_ms, given_bound, None),
+        entry("cov_slot_bwd", "cov_slot_bwd.cu",
+              "autogp_tpu/ops/cov_pallas_vjp.py:117", *given["kernel7"],
+              grads_plain_ms, given_bound, None),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

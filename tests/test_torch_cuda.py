@@ -144,3 +144,109 @@ def test_cov_tape_bwd_kernel_matches_plain(cuda, N):
            / pr.abs().flatten(1).amax(1))
     assert float(err[ok].max()) <= 1e-3
     assert float(((nb.double() - nr).abs() / nr.abs())[ok].max()) <= 1e-3
+
+
+def _scatter_mask(dev, N, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(N, generator=gen, device=dev) < 0.75).float()
+
+
+@pytest.mark.parametrize("N", [32, 200])
+@pytest.mark.parametrize("masked", [True, False])
+def test_cov_slot_kernel_matches_plain(cuda, N, masked):
+    """Kernel 6 on 16 prior trees with a scattered mask, at a tile
+    multiple and at a ragged N: normwise relative error <= 1e-5 per
+    particle against its plain version (the same float32 formulas), and
+    against the tape kernel's gram."""
+    cfg, nt, pt, noise, ts, _ = _prior(cuda, 16, N, seed=N + 2)
+    mask = _scatter_mask(cuda, N, N)
+    before = cov.slot_launches
+    K = cov.cov_matrix(nt, pt, noise, ts, mask, cfg.depth_cap, masked=masked)
+    torch.cuda.synchronize()
+    assert cov.slot_launches == before + 1
+    Kp = cov.cov_matrix_plain(nt, pt, noise, ts, mask, cfg.depth_cap, masked)
+    m = mask if masked else torch.ones_like(mask)
+    Kt = cov.cov_tape(nt, pt, noise, ts, ts, m, m, cfg.depth_cap, gram=True)
+    for ref in (Kp, Kt):
+        err = ((K - ref).abs().amax((1, 2)) / ref.abs().amax((1, 2))).max()
+        assert float(err) <= 1e-5
+
+
+@pytest.mark.parametrize("N", [32, 200])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("tape", [True, False], ids=["tape", "slot"])
+def test_cov_grads_kernels_match_plain(cuda, N, masked, tape):
+    """Kernels 5b (unfused tape backward) and 7 (per-slot backward) on 16
+    prior trees, a random non-symmetric cotangent and a scattered mask,
+    against the plain version in float64 on the same float32 inputs: per
+    particle max|err| / max|ref| <= 1e-3 for the parameter gradients and
+    1e-5 for the noise gradient (float32 tree values, double adjoints and
+    sums); two launches bitwise equal."""
+    cfg, nt, pt, _, ts, _ = _prior(cuda, 16, N, seed=N + 3)
+    mask = _scatter_mask(cuda, N, N + 1)
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    kbar = torch.randn(16, N, N, generator=gen, device=cuda)
+    fn = cov_vjp.cov_grads_tape if tape else cov_vjp.cov_grads
+    name = "unfused_launches" if tape else "slot_launches"
+    before = getattr(cov_vjp, name)
+    pb, nb = fn(nt, pt, kbar, ts, mask, cfg.depth_cap, masked=masked)
+    pb2, nb2 = fn(nt, pt, kbar, ts, mask, cfg.depth_cap, masked=masked)
+    torch.cuda.synchronize()
+    assert getattr(cov_vjp, name) == before + 2
+    assert torch.equal(pb, pb2) and torch.equal(nb, nb2)
+    pr, nr = cov_vjp.cov_grads_plain(nt, pt.double(), kbar.double(),
+                                     ts.double(), mask.double(),
+                                     cfg.depth_cap, masked)
+    ok = torch.isfinite(pr.flatten(1)).all(1)
+    assert int(ok.sum()) >= 8
+    err = ((pb.double() - pr).abs().flatten(1).amax(1)
+           / pr.abs().flatten(1).amax(1).clamp_min(1e-30))
+    assert float(err[ok].max()) <= 1e-3
+    assert float(((nb.double() - nr).abs() / nr.abs()).max()) <= 1e-5
+
+
+def test_dense_route_matches_fused_route(cuda):
+    """At the 32-point bucket model.lml under grad takes cov_matrix_diff +
+    mvn_logpdf_masked_cvjp (kernel 5b launches, kernel 5 does not); its
+    value is torch.equal to the value path's and its gradient agrees with
+    LmlTapeFused's on the same inputs to 1e-3 of each particle's largest
+    entry (two float32 routes to one gradient)."""
+    cfg, _, _, _, ts, mask = _prior(cuda, 16, 32, seed=5)
+    tab = TM.prior_tables(cfg, cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    nt, pz = TM.sample_tree(gen, 16, tab, torch.float32, cuda)
+    nz = torch.randn(16, generator=gen, device=cuda)
+    xs = torch.sin(7 * ts) * mask
+    v0 = TM.lml(nt, pz, nz, ts, xs, mask, cfg, tab)
+    pzg, nzg = pz.clone().requires_grad_(True), nz.clone().requires_grad_()
+    before = (cov_vjp.unfused_launches, cov_vjp.launches)
+    v = TM.lml(nt, pzg, nzg, ts, xs, mask, cfg, tab)
+    gp, gn = torch.autograd.grad(v.sum(), (pzg, nzg))
+    assert (cov_vjp.unfused_launches, cov_vjp.launches) == (before[0] + 1,
+                                                            before[1])
+    assert torch.equal(v.detach(), v0)
+    pzf, nzf = pz.clone().requires_grad_(True), nz.clone().requires_grad_()
+    vf = cov_vjp.LmlTapeFused.apply(
+        TM.transform_params(nt, pzf, tab), TM.transform_noise(nzf, cfg), nt,
+        ts, xs, mask, cfg.depth_cap)
+    gpf, gnf = torch.autograd.grad(vf.sum(), (pzf, nzf))
+    assert torch.equal(vf.detach(), v0)
+    ok = torch.isfinite(v0) & torch.isfinite(gpf.flatten(1)).all(1)
+    assert int(ok.sum()) >= 8
+    a = torch.cat([gp.flatten(1), gn[:, None]], 1)[ok]
+    b = torch.cat([gpf.flatten(1), gnf[:, None]], 1)[ok]
+    assert float(((a - b).abs().amax(1) / b.abs().amax(1)).max()) <= 1e-3
+
+
+def test_ragged_last_panel_matches_f64(cuda):
+    """The blocked factorization at N = 200 (one full panel and one of 72
+    columns) within 1e-4 (normwise) of the float64 factor."""
+    K, x = _spd(cuda, 8, 200, seed=200)
+    before = chol.launches
+    L, a = chol.chol_solve(torch.tril(K).float(), x.float())
+    torch.cuda.synchronize()
+    assert chol.launches == before + 2
+    Lr = torch.linalg.cholesky(K)
+    ar = torch.linalg.solve_triangular(Lr, x[..., None], upper=False)[..., 0]
+    assert float((L.double() - Lr).abs().max() / Lr.abs().max()) <= 1e-4
+    assert float((a.double() - ar).abs().max() / ar.abs().max()) <= 1e-4
