@@ -1,11 +1,14 @@
 // L^-1 by block forward substitution, with beta = L^-T alpha, ||L^-1||_F^2
-// and (optionally) the lower block-rows of K^-1 = L^-T L^-1.
+// and (optionally) the lower block-rows of K^-1 = L^-T L^-1 or L^-1 itself.
 //
-// Replaces: autogp_tpu/ops/kinv_pallas.py, _kernel, in both of its
-// launches on the HMC path: _launch(want_kinv=False, wd=...) behind
-// linv_stats_wd (noise HMC) and _launch_strips behind kinv_beta_strips
-// (every LML gradient). One kernel family serves both; the strips form is
-// the in-place factor L written by ops/chol.py's driver.
+// Replaces: autogp_tpu/ops/kinv_pallas.py, _kernel, in all of its
+// launches: _launch(want_kinv=False, wd=...) behind linv_stats_wd (noise
+// HMC), _launch_strips behind kinv_beta_strips (every LML gradient),
+// _launch(want_v=True) behind linv_beta (the in-tape L^-1 backend of the
+// LML gradient), and the Wd-less entries kinv_beta and linv_stats, whose
+// Wd the wrapper computes first (ops/kinv.py). One kernel family serves
+// all; the strips form is the in-place factor L written by ops/chol.py's
+// driver.
 //
 // What it computes, per particle p with N = nb * B (B = min(N, 128)):
 //   X = L^-1, column block j at a time: X[j, j] = Wd[j] (kernel 2's
@@ -17,6 +20,12 @@
 //   (diagonal blocks dense-symmetric, as gp_math.kinv_from_linv(
 //   lower_only=True)). X lives in a [P, N, N] scratch the wrapper
 //   allocates; only its lower block triangle is ever written or read.
+//   With L^-1 wanted (autogp_linv_beta), X is the output V instead, and
+//   each block also writes the exact zeros of its strip's strict upper
+//   part (the blocks above the diagonal block and the upper triangle of
+//   Wd[j]): the in-tape K^-1 tiles of cov_tape_bwd.cu contract whole
+//   columns of V and rely on them. beta and fro are computed by the same
+//   code as without it, so the two agree bit for bit.
 //
 // What bounds it on this card: FP32 operations. At [64, 1024, 1024] the
 // substitution is ~N^3/3 and K^-1 another ~N^3/3 multiply-adds per
@@ -110,7 +119,9 @@ __device__ __forceinline__ void store(float* dst, long long ld,
 
 // One block per (column block j, particle p): X[:, j] by substitution,
 // then beta over the strip's B columns and the strip's share of fro.
-template <int B>
+// kWantV: X is the output L^-1, and its strip's strict upper part is
+// written as exact zeros.
+template <int B, bool kWantV>
 __global__ void __launch_bounds__(kThreads)
 linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
             const float* __restrict__ alpha, float* X,
@@ -129,8 +140,14 @@ linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
   const int c0 = j * B;
 
   // X[j, j] = Wd[j] (lower triangular; its zeros above come along).
-  for (int e = threadIdx.x; e < B * B; e += kThreads)
-    Xp[(long long)(c0 + e / B) * N + c0 + e % B] = Wp[(long long)j * B * B + e];
+  for (int e = threadIdx.x; e < B * B; e += kThreads) {
+    const float w = Wp[(long long)j * B * B + e];
+    Xp[(long long)(c0 + e / B) * N + c0 + e % B] =
+        (kWantV && e % B > e / B) ? 0.0f : w;
+  }
+  if (kWantV)
+    for (int e = threadIdx.x; e < c0 * B; e += kThreads)
+      Xp[(long long)(e / B) * N + c0 + e % B] = 0.0f;
   __syncthreads();
 
   float acc[B / 16][B / 16];
@@ -209,13 +226,13 @@ __global__ void fro_sum_kernel(const double* __restrict__ fro_part,
   fro[p] = (float)s;
 }
 
-template <int B>
+template <int B, bool kWantV>
 int launch(const float* L, const float* wd, const float* alpha, float* X,
            float* beta, double* fro_part, float* fro, float* kinv, int P,
            int N, cudaStream_t stream) {
   const int nb = N / B;
-  linv_kernel<B><<<dim3(nb, P), kThreads, 0, stream>>>(L, wd, alpha, X,
-                                                       beta, fro_part, N);
+  linv_kernel<B, kWantV><<<dim3(nb, P), kThreads, 0, stream>>>(
+      L, wd, alpha, X, beta, fro_part, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (kinv != nullptr) {
@@ -228,15 +245,10 @@ int launch(const float* L, const float* wd, const float* alpha, float* X,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// L [P, N, N] lower factor, wd [P, nb, B, B], alpha [P, N]; scratch X
-// [P, N, N] f32 and fro_part [P, nb] f64; outputs beta [P, N], fro [P]
-// and, when kinv is not null, K^-1 [P, N, N] lower-only. B = min(N, 128)
-// must divide N and be 32, 64 or 128.
-extern "C" int autogp_kinv(const void* L, const void* wd, const void* alpha,
-                           void* X, void* beta, void* fro_part, void* fro,
-                           void* kinv, int P, int N, void* stream) {
+template <bool kWantV>
+int dispatch(const void* L, const void* wd, const void* alpha, void* X,
+             void* beta, void* fro_part, void* fro, void* kinv, int P, int N,
+             void* stream) {
   const int B = N < 128 ? N : 128;
   if (P < 1 || N % B != 0) return (int)cudaErrorInvalidValue;
   const float* l = (const float*)L;
@@ -249,9 +261,32 @@ extern "C" int autogp_kinv(const void* L, const void* wd, const void* alpha,
   float* k = (float*)kinv;
   auto s = (cudaStream_t)stream;
   switch (B) {
-    case 32: return launch<32>(l, w, a, x, b, fp, f, k, P, N, s);
-    case 64: return launch<64>(l, w, a, x, b, fp, f, k, P, N, s);
-    case 128: return launch<128>(l, w, a, x, b, fp, f, k, P, N, s);
+    case 32: return launch<32, kWantV>(l, w, a, x, b, fp, f, k, P, N, s);
+    case 64: return launch<64, kWantV>(l, w, a, x, b, fp, f, k, P, N, s);
+    case 128: return launch<128, kWantV>(l, w, a, x, b, fp, f, k, P, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// L [P, N, N] lower factor, wd [P, nb, B, B], alpha [P, N]; scratch X
+// [P, N, N] f32 and fro_part [P, nb] f64; outputs beta [P, N], fro [P]
+// and, when kinv is not null, K^-1 [P, N, N] lower-only. B = min(N, 128)
+// must divide N and be 32, 64 or 128.
+extern "C" int autogp_kinv(const void* L, const void* wd, const void* alpha,
+                           void* X, void* beta, void* fro_part, void* fro,
+                           void* kinv, int P, int N, void* stream) {
+  return dispatch<false>(L, wd, alpha, X, beta, fro_part, fro, kinv, P, N,
+                         stream);
+}
+
+// The same inputs and scratch fro_part; outputs V = L^-1 [P, N, N] with
+// exact zeros above the diagonal, beta [P, N] and fro [P].
+extern "C" int autogp_linv_beta(const void* L, const void* wd,
+                                const void* alpha, void* V, void* beta,
+                                void* fro_part, void* fro, int P, int N,
+                                void* stream) {
+  return dispatch<true>(L, wd, alpha, V, beta, fro_part, fro, nullptr, P, N,
+                        stream);
 }

@@ -13,7 +13,9 @@ MVN log density and the posterior marginals route their covariance blocks
 and factorizations through ops/cov.py and ops/chol.py, so on a CUDA tensor
 they run the hand-written kernels.
 
-The gradient path's plain helpers are here too: `kinv_from_linv` and the
+The gradient path's plain helpers are here too: `diag_blocks` and
+`tri_inv_blocked` (the Wd of the kinv kernel's non-`wd` entries),
+`kinv_from_linv` and the
 closed-form cotangent of the MVN log density (autogp_tpu/gp_math.py:
 402-473), which the plain versions of the kinv and tape-backward kernels
 use; `mvn_logpdf_masked_cvjp`, the MVN log density as an autograd Function
@@ -223,6 +225,26 @@ def use_blocked_inv(N: int) -> bool:
     """The noise gradient's closed form applies: N a power of two >= 64
     (autogp_tpu/gp_math.py:370-371); smaller buckets use autograd."""
     return N >= 64 and (N & (N - 1)) == 0
+
+
+def diag_blocks(L, s: int):
+    """[..., N/s, s, s] diagonal s x s blocks of L [..., N, N]
+    (autogp_tpu/gp_math.py:310)."""
+    N = L.shape[-1]
+    return torch.stack([L[..., k * s:(k + 1) * s, k * s:(k + 1) * s]
+                        for k in range(N // s)], dim=-3)
+
+
+def tri_inv_blocked(L):
+    """Inverse of lower-triangular L [..., n, n], with exact zeros above
+    the diagonal (autogp_tpu/gp_math.py:262). The reference built it by
+    recursive 2 x 2 blocking to put the work on the MXU; here it is one
+    batched triangular solve against the identity. It gives the kinv
+    kernel's Wd (the inverses of the factor's diagonal blocks) where the
+    factorization did not keep them."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.tril(torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                                    upper=False))
 
 
 def kinv_from_linv(Linv):

@@ -45,10 +45,15 @@ SIGNATURES = {
     # L, wd, alpha, X scratch, beta, fro_part scratch, fro, kinv (or
     # NULL), P, N, stream
     "autogp_kinv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # L, wd, alpha, V out, beta, fro_part scratch, fro, P, N, stream
+    "autogp_linv_beta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kinv, beta,
     # g, partial scratch, out, P, M, N, stream
     "autogp_cov_tape_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _P],
+    # the same, with V = L^-1 in place of K^-1
+    "autogp_cov_tape_bwd_linv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _I, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kbar, partial
     # scratch, out, P, M, N, masked, stream
     "autogp_cov_tape_bwd_unfused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

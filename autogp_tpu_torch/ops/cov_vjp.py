@@ -12,6 +12,13 @@ Port of autogp_tpu/ops/cov_pallas_vjp.py:
   noise. Its plain version forms the cotangent 0.5 g (beta beta^T - K^-1)
   m m^T and takes the vector-Jacobian product of `cov.cov_tape_plain`
   with torch.autograd.grad.
+- `cov_tape_bwd_linv` wraps the same kernel's in-tape L^-1 entry (the
+  Pallas kernel's `linv=True` mode, :289-297, :381-397, :646-655, only with
+  sym): the same contract, given V = L^-1 with exact zeros above the
+  diagonal (`kinv.linv_beta`) in place of K^-1. Each block forms its K^-1
+  tile from two column strips of V, so K^-1 never exists in device
+  memory. Its plain version is `cov_tape_bwd_plain` on
+  `gp_math.kinv_from_linv(V)`.
 - `cov_grads_tape` wraps the same kernel's unfused entry (`beta=None`
   there): the cotangent Kbar [P, N, N] itself is the input, no symmetry is
   assumed and every tile is visited.
@@ -24,17 +31,19 @@ Port of autogp_tpu/ops/cov_pallas_vjp.py:
   `cov_grads`. Differentiable in (params_t, noise) only.
 - `LmlTapeFused` is `lml_tape_fused` (:842) over the batch. Forward:
   kernel 1 (lower_only), `chol.chol_solve_strips`, the LML value --
-  bitwise the value-only route's. Backward: `kinv.kinv_beta_strips`, then
-  kernel 5. Differentiable in (params_t, noise) only.
+  bitwise the value-only route's. Backward, chosen by the module constant
+  `INTAPE_LINV` (cov_pallas_vjp.py:33, read when the forward runs):
+  `kinv.kinv_beta_strips`, then kernel 5 (False, the default, as in the
+  reference), or `kinv.linv_beta` on the same factor and Wd, then
+  `cov_tape_bwd_linv` (True). Differentiable in (params_t, noise) only.
 
 The kinv kernel and kernel 5 take every power-of-two N >= 32 (B = min(N,
 128)) and there is no TAPE_CAP dispatch (that cap was a VMEM budget);
 `model.lml` sends the buckets the reference sends (power-of-two N >= 64)
-to `LmlTapeFused` and the rest through `cov_matrix_diff`. Kernel 5's
-in-tape L^-1 mode has no caller in the port and is not ported
-(ROADMAP.md). `launches`, `unfused_launches` and `slot_launches` count the
-launches of `cov_tape_bwd`, `cov_grads_tape` and `cov_grads`, and nothing
-else.
+to `LmlTapeFused` and the rest through `cov_matrix_diff`. `launches`,
+`linv_launches`, `unfused_launches` and `slot_launches` count the launches
+of `cov_tape_bwd`, `cov_tape_bwd_linv`, `cov_grads_tape` and `cov_grads`,
+and nothing else.
 """
 
 from __future__ import annotations
@@ -46,10 +55,16 @@ from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops import chol, cov, kinv
 
 launches = 0
+linv_launches = 0
 unfused_launches = 0
 slot_launches = 0
 
 TILE = 32   # csrc/cov_tape_bwd.cu kTile
+
+# LmlTapeFused's backward backend: False = K^-1 by the kinv kernel, then
+# kernel 5; True = L^-1 by the kinv kernel, then kernel 5's in-tape mode.
+# A/B: autogp_tpu_torch/scripts/bench_grad_ab.py.
+INTAPE_LINV = False
 
 
 def cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower, beta, g,
@@ -75,15 +90,38 @@ def cov_tape_bwd(node_type, params_t, ts, mask, kinv_lower, beta, g,
 
     node_type [P, M]; ts, mask [N]; g [P]. CUDA tensors launch the kernel
     (float32, or it raises), CPU tensors take `cov_tape_bwd_plain`."""
+    global launches
     if not backend.on_cuda(params_t):
         return cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower,
                                   beta, g, depth_cap)
-    return _launch(node_type, params_t, ts, mask, kinv_lower, beta, g,
-                   depth_cap)
+    out = _launch(node_type, params_t, ts, mask, kinv_lower, beta, g,
+                  depth_cap, linv=False)
+    launches += 1
+    return out
 
 
-def _launch(node_type, params_t, ts, mask, kinv_lower, beta, g, depth_cap):
-    global launches
+def cov_tape_bwd_linv(node_type, params_t, ts, mask, V, beta, g,
+                      depth_cap: int):
+    """`cov_tape_bwd` given V = L^-1 [P, N, N] (exact zeros above the
+    diagonal, as `kinv.linv_beta` returns it) in place of the lower-only
+    K^-1: the kernel forms each K^-1 tile from two column strips of V.
+    CUDA tensors launch the kernel (float32, or it raises), CPU tensors
+    take `cov_tape_bwd_plain` on `gp_math.kinv_from_linv(V)`."""
+    global linv_launches
+    if not backend.on_cuda(params_t):
+        return cov_tape_bwd_plain(node_type, params_t, ts, mask,
+                                  gp_math.kinv_from_linv(V), beta, g,
+                                  depth_cap)
+    out = _launch(node_type, params_t, ts, mask, V, beta, g, depth_cap,
+                  linv=True)
+    linv_launches += 1
+    return out
+
+
+def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
+            linv: bool):
+    """One launch of the fused entry (kmat = K^-1 lower-only) or of the
+    in-tape L^-1 entry (kmat = V)."""
     from autogp_tpu_torch.ops import _build
     P, M = node_type.shape
     N = ts.shape[0]
@@ -94,11 +132,11 @@ def _launch(node_type, params_t, ts, mask, kinv_lower, beta, g, depth_cap):
     tslot, ttype, tlpos, trpos, tlen = cov.build_tape(node_type, depth_cap)
     f32 = torch.float32
     args = [("params", params_t, f32, 3), ("ts", ts, f32, 1),
-            ("mask", mask, f32, 1), ("kinv", kinv_lower, f32, 3),
+            ("mask", mask, f32, 1), ("kmat", kmat, f32, 3),
             ("beta", beta, f32, 2), ("g", g, f32, 1)]
     for name, t, dt, nd in args:
         backend.check_kernel_input(name, t, dt, nd)
-    if (params_t.shape != (P, M, 3) or kinv_lower.shape != (P, N, N)
+    if (params_t.shape != (P, M, 3) or kmat.shape != (P, N, N)
             or beta.shape != (P, N) or g.shape != (P,)
             or mask.shape != (N,)):
         raise ValueError("cov_tape_bwd: shapes do not match [P, M] trees "
@@ -111,14 +149,14 @@ def _launch(node_type, params_t, ts, mask, kinv_lower, beta, g, depth_cap):
     out = torch.empty((P, n_acc), dtype=f32, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.autogp_cov_tape_bwd(
+    name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
+    err = getattr(lib, name)(
         tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
         trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
-        ts.data_ptr(), mask.data_ptr(), kinv_lower.data_ptr(),
+        ts.data_ptr(), mask.data_ptr(), kmat.data_ptr(),
         beta.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
         P, M, N, stream)
-    _build.check("autogp_cov_tape_bwd", err)
-    launches += 1
+    _build.check(name, err)
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
 
 
@@ -263,12 +301,18 @@ class LmlTapeFused(torch.autograd.Function):
         d, alpha, wd, L = chol.chol_solve_strips(K, (xs * mask).expand(P, N))
         ctx.save_for_backward(params_t, alpha, wd, L, node_type, ts, mask)
         ctx.depth_cap = depth_cap
+        ctx.intape = INTAPE_LINV
         return gp_math.mvn_logpdf_from_factor(d, alpha, mask)
 
     @staticmethod
     def backward(ctx, g):
         params_t, alpha, wd, L, node_type, ts, mask = ctx.saved_tensors
-        Kinv, beta, _ = kinv.kinv_beta_strips(alpha, wd, L)
-        pbar, nbar = cov_tape_bwd(node_type, params_t, ts, mask, Kinv, beta,
-                                  g.contiguous(), ctx.depth_cap)
+        if ctx.intape:
+            kmat, beta, _ = kinv.linv_beta(L, alpha, wd)
+            bwd = cov_tape_bwd_linv
+        else:
+            kmat, beta, _ = kinv.kinv_beta_strips(alpha, wd, L)
+            bwd = cov_tape_bwd
+        pbar, nbar = bwd(node_type, params_t, ts, mask, kmat, beta,
+                         g.contiguous(), ctx.depth_cap)
         return pbar, nbar, None, None, None, None, None

@@ -1,15 +1,26 @@
-"""Kernels 3-4: K^-1, beta and ||L^-1||_F^2 from a Cholesky factor
+"""Kernels 3-4: K^-1, beta, ||L^-1||_F^2 and L^-1 from a Cholesky factor
 (csrc/kinv.cu).
 
 Port of autogp_tpu/ops/kinv_pallas.py. One CUDA kernel family replaces
-the Pallas `_kernel` (:73) in both of its launches on the HMC path:
+the Pallas `_kernel` (:73) in every one of its launches:
 
 - `linv_stats_wd(L, alpha, wd)` -> (beta, fro), the noise-gradient
   statistics (`_launch(want_kinv=False, wd=...)`, :223), once per
   noise-HMC leapfrog;
 - `kinv_beta_strips(alpha, wd, L)` -> (K^-1 lower-only, beta, fro), the
   LML gradient's cotangent inputs (`_launch_strips`, :276). The "strips"
-  are the in-place factor of ops/chol.py's driver (chol_solve_strips).
+  are the in-place factor of ops/chol.py's driver (chol_solve_strips), so
+  this entry is also the reference's `kinv_beta_wd` (`want_kinv` with
+  `wd` on an assembled L, :390-411): the port's strips are L itself;
+- `linv_beta(L, alpha, wd=None)` -> (L^-1 with exact zeros above the
+  diagonal, beta, fro), the `want_v` launch (:469-494) behind the in-tape
+  L^-1 backend of the LML gradient (ops/cov_vjp.py, INTAPE_LINV). beta and
+  fro come out bitwise those of `linv_stats_wd` on the same L and Wd;
+- `kinv_beta(L, alpha)` and `linv_stats(L, alpha)`, the entries without
+  Wd (:361-386, :415-432): Wd is `gp_math.tri_inv_blocked` of the
+  factor's diagonal blocks (as the reference did in XLA, :195-200), then
+  the kernel runs as in `kinv_beta_strips` / `linv_stats_wd`. `linv_beta`
+  computes Wd the same way when it is not given.
 
 beta = L^-T alpha (= K^-1 x when alpha = L^-1 x) and fro = ||L^-1||_F^2.
 K^-1 is lower-only: strictly-upper B x B blocks are 0 and the diagonal
@@ -19,9 +30,9 @@ route covers every power-of-two bucket >= 32.
 CUDA tensors launch the kernel (float32, or the wrapper raises); CPU
 tensors take the plain version, which ignores `wd` (as the JAX fallback
 did): L^-1 by `torch.linalg.solve_triangular`, then
-`gp_math.kinv_from_linv`. `strips_launches` and `stats_launches` count
-the kernel launches of `kinv_beta_strips` and `linv_stats_wd`, and
-nothing else.
+`gp_math.kinv_from_linv`. Each entry counts its own kernel launches and
+nothing else: `strips_launches`, `stats_launches`, `linv_beta_launches`,
+`kinv_beta_launches`, `linv_stats_launches`.
 """
 
 from __future__ import annotations
@@ -34,12 +45,14 @@ from autogp_tpu_torch.ops.chol import BLOCK
 
 strips_launches = 0
 stats_launches = 0
+linv_beta_launches = 0
+kinv_beta_launches = 0
+linv_stats_launches = 0
 
 
 def linv_plain(L):
-    """L^-1 [P, N, N] of a lower factor, by triangular solve."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    """L^-1 [P, N, N] of a lower factor, exact zeros above the diagonal."""
+    return gp_math.tri_inv_blocked(L)
 
 
 def _stats_plain(Linv, alpha):
@@ -59,26 +72,79 @@ def linv_stats_plain(L, alpha):
     return _stats_plain(linv_plain(L), alpha)
 
 
+def linv_beta_plain(L, alpha):
+    """(L^-1, beta, fro): the plain version of the kernel's L^-1 output."""
+    Linv = linv_plain(L)
+    return (Linv, *_stats_plain(Linv, alpha))
+
+
+def factor_wd(L):
+    """Wd [P, N/B, B, B]: the inverses of L's diagonal B x B blocks, B =
+    min(N, 128), for the entries that are not given the factorization's."""
+    return gp_math.tri_inv_blocked(gp_math.diag_blocks(L, min(L.shape[-1],
+                                                              BLOCK)))
+
+
 def kinv_beta_strips(alpha, wd, L):
     """(K^-1 [P, N, N] lower-only, beta [P, N], ||L^-1||_F^2 [P]) from the
     strips-form factor of `chol.chol_solve_strips` (L in place, wd the
     per-panel Lkk^-1 [P, nb, B, B])."""
+    global strips_launches
     if not backend.on_cuda(L):
         return kinv_beta_plain(L, alpha)
-    return _launch(L, alpha, wd, want_kinv=True)
+    out = _launch(L, alpha, wd, "kinv")
+    strips_launches += 1
+    return out
 
 
 def linv_stats_wd(L, alpha, wd):
     """(beta [P, N], ||L^-1||_F^2 [P]) without K^-1, from the factor of
     `chol.chol_solve_strips`."""
+    global stats_launches
     if not backend.on_cuda(L):
         return linv_stats_plain(L, alpha)
-    _, beta, fro = _launch(L, alpha, wd, want_kinv=False)
+    _, beta, fro = _launch(L, alpha, wd, None)
+    stats_launches += 1
     return beta, fro
 
 
-def _launch(L, alpha, wd, want_kinv: bool):
-    global strips_launches, stats_launches
+def linv_beta(L, alpha, wd=None):
+    """(V = L^-1 [P, N, N] with exact zeros above the diagonal, beta [P, N],
+    ||L^-1||_F^2 [P]). `wd` is the factorization's per-panel Lkk^-1 (as
+    `chol.chol_solve_strips` returns it); without it the wrapper computes
+    it (`factor_wd`), as the reference's `linv_beta` does."""
+    global linv_beta_launches
+    if not backend.on_cuda(L):
+        return linv_beta_plain(L, alpha)
+    out = _launch(L, alpha, factor_wd(L) if wd is None else wd, "linv")
+    linv_beta_launches += 1
+    return out
+
+
+def kinv_beta(L, alpha):
+    """`kinv_beta_strips` for a factor without its Wd: (K^-1 lower-only,
+    beta, fro)."""
+    global kinv_beta_launches
+    if not backend.on_cuda(L):
+        return kinv_beta_plain(L, alpha)
+    out = _launch(L, alpha, factor_wd(L), "kinv")
+    kinv_beta_launches += 1
+    return out
+
+
+def linv_stats(L, alpha):
+    """`linv_stats_wd` for a factor without its Wd: (beta, fro)."""
+    global linv_stats_launches
+    if not backend.on_cuda(L):
+        return linv_stats_plain(L, alpha)
+    _, beta, fro = _launch(L, alpha, factor_wd(L), None)
+    linv_stats_launches += 1
+    return beta, fro
+
+
+def _launch(L, alpha, wd, out):
+    """(mat, beta, fro) by one launch; mat is K^-1 lower-only for out =
+    "kinv" (L^-1 then lives in a scratch), L^-1 for "linv", else None."""
     from autogp_tpu_torch.ops import _build
     f32 = torch.float32
     backend.check_kernel_input("L", L, f32, 3)
@@ -92,21 +158,24 @@ def _launch(L, alpha, wd, want_kinv: bool):
         raise ValueError(f"kinv: alpha {tuple(alpha.shape)} / wd "
                          f"{tuple(wd.shape)} do not match L {tuple(L.shape)}")
     dev = L.device
-    X = torch.empty_like(L)                          # L^-1 scratch
+    X = torch.empty_like(L)             # L^-1: scratch, or the output
     fro_part = torch.empty((P, N // B), dtype=torch.float64, device=dev)
     beta = torch.empty((P, N), dtype=f32, device=dev)
     fro = torch.empty((P,), dtype=f32, device=dev)
-    kinv = torch.empty_like(L) if want_kinv else None
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if out == "linv":
+        err = lib.autogp_linv_beta(L.data_ptr(), wd.data_ptr(),
+                                   alpha.data_ptr(), X.data_ptr(),
+                                   beta.data_ptr(), fro_part.data_ptr(),
+                                   fro.data_ptr(), P, N, stream)
+        _build.check("autogp_linv_beta", err)
+        return X, beta, fro
+    kinv = torch.empty_like(L) if out == "kinv" else None
     err = lib.autogp_kinv(L.data_ptr(), wd.data_ptr(), alpha.data_ptr(),
-                          X.data_ptr(), beta.data_ptr(),
-                          fro_part.data_ptr(), fro.data_ptr(),
-                          kinv.data_ptr() if want_kinv else None, P, N,
+                          X.data_ptr(), beta.data_ptr(), fro_part.data_ptr(),
+                          fro.data_ptr(),
+                          None if kinv is None else kinv.data_ptr(), P, N,
                           stream)
     _build.check("autogp_kinv", err)
-    if want_kinv:
-        strips_launches += 1
-    else:
-        stats_launches += 1
     return kinv, beta, fro

@@ -47,6 +47,24 @@ back to the CPU):
      round trips,
      and a float64 CPU re-evaluation of the top particles' LMLs and
      predictions;
+  8b. intape -- the LML gradient's in-tape L^-1 backend (INTAPE_LINV):
+     (a) on phase 5's factor, linv_beta (the kinv kernel's L^-1 output)
+     against the plain version in f64, normwise <= 1e-4 for L^-1, the
+     strict upper exactly 0, beta and fro bitwise those of linv_stats_wd;
+     kinv_beta and linv_stats (Wd by tri_inv_blocked) with phase 5's gates;
+     (b) kernel 5's in-tape entry on phase 3's trees, V and beta from
+     linv_beta of phase 6's factor, g = 1: against its plain version in f64
+     on the same inputs, per particle <= 1e-3, two runs bitwise equal, and
+     against kernel 5 on kinv_beta_strips of the same factor (reported);
+     (c) LmlTapeFused with INTAPE_LINV on the 64 prior particles at N=1024:
+     value torch.equal to the value path, z-space gradient against phase
+     7's float64 reference, gate 1e-2 on grams of condition < 1e5; (d) the
+     config-4 fit of phase 8 (same seed) with INTAPE_LINV: linv_beta and
+     cov_tape_bwd_linv launch equally often, kinv_beta_strips and kernel 5
+     never, linv_stats_wd does; finiteness, validate_particles and the
+     top-8 check against float64 on the CPU; (e) the A/B of both backends
+     (autogp_tpu_torch.scripts.bench_grad_ab) at [64, 1024, 1024], values
+     equal. INTAPE_LINV is False again afterwards;
   9. kernel 6 (per-slot assembly) at [64, 1024, 1024] on the phase-3
      trees: against its plain version (normwise <= 1e-5), against the
      plain version in f64 (<= 1e-3) and bitwise against kernel 1's gram;
@@ -482,7 +500,7 @@ def main():
           f"(wrapper, kernels alone, plain) ({st_ms:.4f}, {st_dev_ms:.4f}, "
           f"{st_plain_ms:.4f}), bound "
           f"{stats_bound[0]:.4f} ms ({stats_bound[1]})")
-    del Ki, L_s, wd_s, Kf
+    del Ki, Kf
 
     # ---- 6. bwd (kernel 5) --------------------------------------------
     Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
@@ -490,7 +508,6 @@ def main():
                                                                   -1))
     del Kc
     Ki_c, beta_c, _ = kinv.kinv_beta_strips(a_c, wd_c, L_c)
-    del L_c, wd_c
     g1 = torch.ones(P_MAIN, device=dev)
     pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
     pb2, nb2 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
@@ -498,17 +515,17 @@ def main():
     if not (torch.equal(pb, pb2) and torch.equal(nb, nb2)):
         fail("kernel 5: two runs on the same inputs differ")
 
-    def plain_bwd(dtype, chunk):
+    def plain_bwd(dtype, chunk, kinv_lower, beta_):
         outs = []
         for s in range(0, P_MAIN, chunk):
             sl = slice(s, s + chunk)
             outs.append(cov_vjp.cov_tape_bwd_plain(
                 nt[sl], pt[sl].to(dtype), ts.to(dtype), mask.to(dtype),
-                Ki_c[sl].to(dtype), beta_c[sl].to(dtype), g1[sl].to(dtype),
-                D))
+                kinv_lower[sl].to(dtype), beta_[sl].to(dtype),
+                g1[sl].to(dtype), D))
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
-    pr, nr = plain_bwd(f64, 4)
+    pr, nr = plain_bwd(f64, 4, Ki_c, beta_c)
     ok_b = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
     if int(ok_b.sum()) < P_MAIN // 2:
         fail(f"kernel 5: only {int(ok_b.sum())} particles with a finite "
@@ -525,7 +542,7 @@ def main():
         nt, pt, ts, mask, Ki_c, beta_c, g1, D),
         ("cov_tape_bwd_kernel", "reduce_tiles_kernel"), 3)
     t0 = time.perf_counter()
-    plain_bwd(f32, 8)
+    plain_bwd(f32, 8, Ki_c, beta_c)
     torch.cuda.synchronize()
     bw_plain_ms = (time.perf_counter() - t0) * 1e3
     # Needed work: forward and backward tape plus the cotangent (6 flops)
@@ -719,7 +736,266 @@ def main():
           f"CPU: LML rel {lml_rel:.3e}, predict err / y-range "
           f"{pred_err:.3e}; validate_particles ok")
 
+    rs8, fit_ms8, lml8 = rs, fit_ms, p.lml.clone()
     del model, df
+
+    # ---- 8b. intape: the in-tape L^-1 backend --------------------------
+    from autogp_tpu_torch import gp_math
+    from autogp_tpu_torch.scripts import bench_grad_ab
+    # (a) kinv's L^-1 output and the entries without Wd, phase 5's factor;
+    # the launches of kinv_beta and linv_stats are counted here (their
+    # path: only scripts and tests call them in the reference).
+    for attr in ("kinv_beta_launches", "linv_stats_launches"):
+        setattr(kinv, attr, 0)
+    V_s, beta_v, fro_v = kinv.linv_beta(L_s, a_s, wd_s)
+    Ki_k, beta_kb, fro_kb = kinv.kinv_beta(L_s, a_s)
+    beta_ls, fro_ls = kinv.linv_stats(L_s, a_s)
+    torch.cuda.synchronize()
+    wd_launches = {"kinv_beta": kinv.kinv_beta_launches,
+                   "linv_stats": kinv.linv_stats_launches}
+    Vr = kinv.linv_plain(L_s.double())
+    Kir = gp_math.kinv_from_linv(Vr)
+
+    def stats_errs(b, f):
+        return (normwise_rel(b, beta_r),
+                float(((f.double() - fro_r) / fro_r).abs().max()),
+                max(float((b.double() - beta_r).abs().max()),
+                    float((f.double() - fro_r).abs().max())))
+    lb_errs = (normwise_rel(V_s, Vr), *stats_errs(beta_v, fro_v))
+    lb_abs = max(lb_errs[3], float((V_s.double() - Vr).abs().max()))
+    kb_errs = (normwise_rel(torch.tril(Ki_k), torch.tril(Kir)),
+               *stats_errs(beta_kb, fro_kb))
+    kb_abs = max(kb_errs[3], float(
+        (torch.tril(Ki_k).double() - torch.tril(Kir)).abs().max()))
+    ls_errs = stats_errs(beta_ls, fro_ls)
+    wd_dev = normwise_rel(kinv.factor_wd(L_s), wd_s)
+    del Vr, Kir
+    for name, e in (("linv_beta", lb_errs), ("kinv_beta", kb_errs),
+                    ("linv_stats", (0.0, *ls_errs))):
+        if not (e[0] <= 1e-4 and e[1] <= 1e-4 and e[2] <= 1e-5):
+            fail(f"{name} vs f64 plain (matrix, beta, fro): {e[:3]}")
+    if bool(torch.triu(V_s, 1).any()):
+        fail("linv_beta: L^-1 is not 0 above the diagonal")
+    if bool((Ki_k[:, upper_blocks] != 0).any()):
+        fail("kinv_beta: a strictly-upper block of K^-1 is not 0")
+    if not (torch.equal(beta_v, beta_s) and torch.equal(fro_v, fro_s)):
+        fail("linv_beta and linv_stats_wd disagree on beta / fro")
+    if not (torch.equal(beta_kb, beta_ls) and torch.equal(fro_kb, fro_ls)):
+        fail("kinv_beta and linv_stats disagree on beta / fro")
+    del V_s, Ki_k
+    eye_n = torch.eye(N_MAIN, device=dev).expand_as(L_s)
+
+    def lib_linv():
+        X = torch.linalg.solve_triangular(L_s, eye_n, upper=False)
+        return X, torch.matmul(X.mT, a_s[..., None])
+    lin_names = ("linv_kernel", "fro_sum_kernel")
+    lib_linv_ms = cuda_ms(torch, lib_linv, 5)
+    lb_ms = cuda_ms(torch, lambda: kinv.linv_beta(L_s, a_s, wd_s), 10)
+    lb_dev_ms = device_ms(torch, lambda: kinv.linv_beta(L_s, a_s, wd_s),
+                          lin_names, 5)
+    lb_plain_ms = cuda_ms(torch, lambda: kinv.linv_beta_plain(L_s, a_s), 3)
+    kb_ms = cuda_ms(torch, lambda: kinv.kinv_beta(L_s, a_s), 10)
+    kb_dev_ms = device_ms(torch, lambda: kinv.kinv_beta(L_s, a_s),
+                          kinv_names, 5)
+    ls_ms = cuda_ms(torch, lambda: kinv.linv_stats(L_s, a_s), 10)
+    ls_dev_ms = device_ms(torch, lambda: kinv.linv_stats(L_s, a_s),
+                          lin_names, 5)
+    # L^-1 out: read L, Wd, alpha, write L^-1, beta, fro. Without Wd the
+    # B^3 / 3 flops of each diagonal-block inverse join, Wd is not read.
+    linv_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
+                       4 * (2 * NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
+                            * N_MAIN))
+    wd_flops = P_MAIN * N_MAIN * Bk ** 2 / 3
+    kinvb_bound = bound(2 * P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
+                        4 * (2 * NN + 2 * P_MAIN * N_MAIN))
+    statsb_bound = bound(P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
+                         4 * (NN + 2 * P_MAIN * N_MAIN))
+    intape_msgs = [
+        f"(a) at [64, 1024, 1024] vs f64 plain on the same f32 factor "
+        f"(matrix, beta, fro; gates 1e-4, 1e-4, 1e-5): linv_beta "
+        f"{lb_errs[0]:.3e}, {lb_errs[1]:.3e}, {lb_errs[2]:.3e} (max abs "
+        f"{lb_abs:.3e}), strict upper 0, beta and fro bitwise "
+        f"linv_stats_wd's; kinv_beta {kb_errs[0]:.3e}, {kb_errs[1]:.3e}, "
+        f"{kb_errs[2]:.3e} (max abs {kb_abs:.3e}), strictly-upper blocks 0;"
+        f" linv_stats {ls_errs[0]:.3e}, {ls_errs[1]:.3e} (max abs "
+        f"{ls_errs[2]:.3e}), bitwise kinv_beta's stats; Wd by "
+        f"tri_inv_blocked vs the panel kernel's: normwise {wd_dev:.3e}; ms "
+        f"(wrapper, kernels alone, plain, library) linv_beta ({lb_ms:.4f}, "
+        f"{lb_dev_ms:.4f}, {lb_plain_ms:.4f}, {lib_linv_ms:.4f} "
+        f"solve_triangular+matvec), bound {linv_bound[0]:.4f} "
+        f"({linv_bound[1]}); kinv_beta ({kb_ms:.4f}, {kb_dev_ms:.4f}, "
+        f"{kv_plain_ms:.4f}, {kv_lib_ms:.4f} cholesky_inverse+matvec), "
+        f"bound {kinvb_bound[0]:.4f}; linv_stats ({ls_ms:.4f}, "
+        f"{ls_dev_ms:.4f}, {st_plain_ms:.4f}, {lib_linv_ms:.4f}), bound "
+        f"{statsb_bound[0]:.4f}"]
+    del L_s, wd_s, eye_n
+
+    # (b) kernel 5's in-tape entry on phase 3's trees, phase 6's factor.
+    V_c, beta_vc, _ = kinv.linv_beta(L_c, a_c, wd_c)
+    del L_c, wd_c
+    pl, nl = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V_c, beta_vc, g1, D)
+    pl2, nl2 = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V_c, beta_vc, g1,
+                                         D)
+    torch.cuda.synchronize()
+    if not (torch.equal(pl, pl2) and torch.equal(nl, nl2)):
+        fail("kernel 5c: two runs on the same inputs differ")
+    Kv64 = gp_math.kinv_from_linv(V_c.double())
+    pr, nr = plain_bwd(f64, 4, Kv64, beta_vc)
+    ok_l = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    if int(ok_l.sum()) < P_MAIN // 2:
+        fail(f"kernel 5c: only {int(ok_l.sum())} particles with a finite "
+             f"f64 reference")
+    e_pl = per_particle_rel(pl, pr)[ok_l]
+    e_nl = ((nl.double() - nr).abs() / nr.abs())[ok_l]
+    lt_abs = float((pl.double() - pr).abs()[ok_l].max())
+    if not (float(e_pl.max()) <= 1e-3 and float(e_nl.max()) <= 1e-3):
+        fail(f"kernel 5c vs f64 plain: worst pbar {float(e_pl.max()):.3e}, "
+             f"nbar {float(e_nl.max()):.3e}")
+    del Kv64, pr
+    vs5 = max(float(per_particle_rel(pl, pb)[ok_l].max()),
+              float(((nl.double() - nb).abs() / nb.double().abs())[ok_l]
+                    .max()))
+    eq5 = torch.equal(pl, pb) and torch.equal(nl, nb)
+
+    def run_linv():
+        return cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V_c, beta_vc, g1,
+                                         D)
+    lt_ms = cuda_ms(torch, run_linv, 5)
+    lt_dev_ms = device_ms(torch, run_linv,
+                          ("cov_tape_bwd_kernel", "reduce_tiles_kernel"), 3)
+    t0 = time.perf_counter()
+    for s_ in range(0, P_MAIN, 8):
+        sl = slice(s_, s_ + 8)
+        cov_vjp.cov_tape_bwd_plain(nt[sl], pt[sl], ts, mask,
+                                   gp_math.kinv_from_linv(V_c[sl]),
+                                   beta_vc[sl], g1[sl], D)
+    torch.cuda.synchronize()
+    lt_plain_ms = (time.perf_counter() - t0) * 1e3
+    del V_c
+    # Needed work: kernel 5's, plus the active lower triangle of K^-1 from
+    # L^-1: sum over active i of (i + 1) (n - i) products, i.e.
+    # n (n + 1) (n + 2) / 3 flops per particle; the active lower triangle
+    # of L^-1 and the active beta read once.
+    ktile_flops = P_MAIN * n_act * (n_act + 1) * (n_act + 2) / 3
+    linv_bwd_bound = bound(sum(c[0] for c in bwd_c) * n_low + ktile_flops,
+                           sum(c[1] for c in bwd_c) * n_low,
+                           4 * P_MAIN * (n_low + n_act))
+    intape_msgs.append(
+        f"(b) cov_tape_bwd_linv vs f64 plain on the same V, beta "
+        f"({int(ok_l.sum())} particles): worst pbar {float(e_pl.max()):.3e} "
+        f"(median {float(e_pl.median()):.3e}), nbar {float(e_nl.max()):.3e} "
+        f"(gate 1e-3), max abs pbar err {lt_abs:.3e}; two runs bitwise "
+        f"equal; vs kernel 5 on kinv_beta_strips of the same factor "
+        f"{vs5:.3e} (bitwise equal: {eq5}); ms (wrapper, kernels alone, "
+        f"plain f32 in chunks of 8) ({lt_ms:.4f}, {lt_dev_ms:.4f}, "
+        f"{lt_plain_ms:.4f}), bound {linv_bwd_bound[0]:.4f} ms "
+        f"({linv_bwd_bound[1]})")
+
+    # (c) LmlTapeFused with the in-tape backend, against phase 7.
+    cov_vjp.INTAPE_LINV = True
+    try:
+        pzg = pz.clone().requires_grad_(True)
+        nzg = noise_z.clone().requires_grad_(True)
+        v_i = M.lml(nt, pzg, nzg, ts, xs_main, mask, cfg, tab)
+        gp_i, gn_i = torch.autograd.grad(v_i.sum(), (pzg, nzg))
+        torch.cuda.synchronize()
+        if not torch.equal(v_i.detach(), lml_k):
+            fail("intape: LmlTapeFused value under grad differs from the "
+                 "value path")
+        g_i = torch.cat([gp_i.flatten(1), gn_i[:, None]], 1).double().cpu()
+        fin_i = (torch.isfinite(vr) & torch.isfinite(g_r).all(1)
+                 & torch.isfinite(g_i).all(1))
+        well_i = fin_i & (conds < 1e5)
+        e_i = per_particle_rel(g_i, g_r)
+        if int(well_i.sum()) < 8 or not float(e_i[well_i].max()) <= 1e-2:
+            fail(f"intape grad vs f64 autograd: worst "
+                 f"{float(e_i[well_i].max()):.3e} on {int(well_i.sum())} "
+                 f"particles with cond < 1e5")
+        both_i = fin_i & torch.isfinite(g_k).all(1)
+        vs_k = float(per_particle_rel(g_i[both_i], g_k[both_i]).max())
+        intape_msgs.append(
+            f"(c) LmlTapeFused value torch.equal to the value path; "
+            f"gradient vs f64 autograd worst {float(e_i[well_i].max()):.3e} "
+            f"(median {float(e_i[well_i].median()):.3e}) on "
+            f"{int(well_i.sum())} particles with cond < 1e5 (gate 1e-2); vs "
+            f"phase 7's gradient {vs_k:.3e} (bitwise equal: "
+            f"{torch.equal(g_i, g_k)})")
+
+        # (d) the config-4 fit of phase 8 on the in-tape backend.
+        A.seed(1)
+        counters_i = {"cov_tape": (cov, "launches"),
+                      "chol_panel": (chol, "launches"),
+                      "linv_stats_wd": (kinv, "stats_launches"),
+                      "linv_beta": (kinv, "linv_beta_launches"),
+                      "cov_tape_bwd_linv": (cov_vjp, "linv_launches"),
+                      "kinv_beta_strips": (kinv, "strips_launches"),
+                      "cov_tape_bwd": (cov_vjp, "launches")}
+        for mod, attr in counters_i.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        ev[0].record()
+        model = A.GPModel(t_days, y, n_particles=P_MAIN)
+        A.fit_smc(model, schedule=sched, n_mcmc=10, n_hmc=10)
+        ev[1].record()
+        df = A.predict(model, ds_future, quantiles=[.1, .5, .9])
+        ev[2].record()
+        torch.cuda.synchronize()
+        launches_i = {k: getattr(mod, attr)
+                      for k, (mod, attr) in counters_i.items()}
+    finally:
+        cov_vjp.INTAPE_LINV = False
+    fit_ms_i, pred_ms_i = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    li = launches_i
+    if not (li["linv_beta"] > 0 and li["linv_beta"] == li["cov_tape_bwd_linv"]
+            and li["kinv_beta_strips"] == 0 and li["cov_tape_bwd"] == 0
+            and min(li["linv_stats_wd"], li["cov_tape"],
+                    li["chol_panel"]) > 0):
+        fail(f"intape fit: launches {li}")
+    if len(df) != P_MAIN * 32 or not np.isfinite(df[cols].to_numpy()).all():
+        fail("intape fit: predict output not finite or of the wrong shape")
+    p = model.particles
+    if not (torch.isfinite(p.lml).all()
+            and np.isfinite(model.particle_weights()).all()
+            and math.isfinite(model.log_marginal_likelihood_estimate())):
+        fail("intape fit: non-finite LML, weight or log-ML estimate")
+    smc.validate_particles(p, model.config, tables=model.tables)
+    lml_rel_i, pred_err_i = top8_vs_f64_cpu(A, np, torch, model, df,
+                                            ds_future, [.1, .5, .9],
+                                            y.max() - y.min())
+    if not (lml_rel_i <= 1e-3 and pred_err_i <= 1e-3):
+        fail(f"intape fit: f32 card vs f64 CPU on the top particles: LML "
+             f"rel {lml_rel_i:.3e}, predict err / y-range {pred_err_i:.3e}")
+
+    def round_line(rs_):
+        return ", ".join(f"({r['step']}, {r['mh_accepted']}, "
+                         f"{r['hmc_sweeps']}, {r['hmc_accepted']})"
+                         for r in rs_)
+    intape_msgs.append(
+        f"(d) config-4 fit with INTAPE_LINV {fit_ms_i:.1f} ms (phase 8: "
+        f"{fit_ms8:.1f} ms), predict {pred_ms_i:.1f} ms; launches {li}; per "
+        f"round (step, MH accepted, HMC sweeps, HMC parameter accepts) "
+        f"{round_line(model.round_stats)} (phase 8: {round_line(rs8)}); "
+        f"final LMLs torch.equal to phase 8's: "
+        f"{torch.equal(p.lml, lml8)}; top-8 vs f64 CPU: LML rel "
+        f"{lml_rel_i:.3e}, predict err / y-range {pred_err_i:.3e}; "
+        f"validate_particles ok")
+    launches_intape = li
+    del model, df
+
+    # (e) the A/B of the two backends.
+    ab = bench_grad_ab.run(N=N_MAIN, P=P_MAIN, reps=10, device=dev)
+    if not ab["value_max_abs_diff"] == 0.0:
+        fail(f"A/B: the two backends' values differ by "
+             f"{ab['value_max_abs_diff']:.3e}")
+    intape_msgs.append(
+        f"(e) bench_grad_ab grad-LML batch [64, 1024, 1024] ms (CUDA events"
+        f", turns A B B A): kinv kernel {ab['ms'][False]:.4f}, L^-1 in tape "
+        f"{ab['ms'][True]:.4f}; value max|diff| {ab['value_max_abs_diff']}; "
+        f"param-grad max rel diff {ab['param_grad_rel']:.3e}, noise-grad "
+        f"{ab['noise_grad_rel']:.3e} ({ab['n_finite']} particles)")
+    if cov_vjp.INTAPE_LINV:
+        fail("intape: INTAPE_LINV was not restored")
+    phase("intape", "; ".join(intape_msgs))
 
     # ---- 9. kernel 6: per-slot assembly -------------------------------
     def chunked(fn, chunk):
@@ -1067,6 +1343,9 @@ def main():
     # for the unfused backward, the dense_grad drive of cov_matrix_diff(
     # tape=False) (phase 11) for kernels 6 and 7.
     launches.update(dense_launches)
+    launches["linv_beta"] = launches_intape["linv_beta"]
+    launches["cov_tape_bwd_linv"] = launches_intape["cov_tape_bwd_linv"]
+    launches.update(wd_launches)
     launches["cov_tape_bwd_unfused"] = online_launches[
         "cov_tape_bwd_unfused"]
 
@@ -1087,13 +1366,24 @@ def main():
               p_plain_ms, chol_bound, p_lib_ms),
         entry("linv_stats_wd", "kinv.cu",
               "autogp_tpu/ops/kinv_pallas.py:73", stats_abs, st_ms,
-              st_dev_ms, st_plain_ms, stats_bound, None),
+              st_dev_ms, st_plain_ms, stats_bound, lib_linv_ms),
+        entry("linv_beta", "kinv.cu", "autogp_tpu/ops/kinv_pallas.py:73",
+              lb_abs, lb_ms, lb_dev_ms, lb_plain_ms, linv_bound,
+              lib_linv_ms),
+        entry("kinv_beta", "kinv.cu", "autogp_tpu/ops/kinv_pallas.py:73",
+              kb_abs, kb_ms, kb_dev_ms, kv_plain_ms, kinvb_bound, kv_lib_ms),
+        entry("linv_stats", "kinv.cu", "autogp_tpu/ops/kinv_pallas.py:73",
+              ls_errs[2], ls_ms, ls_dev_ms, st_plain_ms, statsb_bound,
+              lib_linv_ms),
         entry("kinv_beta_strips", "kinv.cu",
               "autogp_tpu/ops/kinv_pallas.py:73", kinv_abs, kv_ms, kv_dev_ms,
               kv_plain_ms, kinv_bound, kv_lib_ms),
         entry("cov_tape_bwd", "cov_tape_bwd.cu",
               "autogp_tpu/ops/cov_pallas_vjp.py:275", bwd_abs, bw_ms,
               bw_dev_ms, bw_plain_ms, bwd_bound, None),
+        entry("cov_tape_bwd_linv", "cov_tape_bwd.cu",
+              "autogp_tpu/ops/cov_pallas_vjp.py:275", lt_abs, lt_ms,
+              lt_dev_ms, lt_plain_ms, linv_bwd_bound, None),
         entry("cov_slot", "cov_slot.cu", "autogp_tpu/ops/cov_pallas.py:386",
               slot_err, slot_ms, slot_dev_ms, slot_plain_ms, slot_bound,
               None),

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from autogp_tpu_torch import config as C
+from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as TM
 from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
 
@@ -250,3 +251,97 @@ def test_ragged_last_panel_matches_f64(cuda):
     ar = torch.linalg.solve_triangular(Lr, x[..., None], upper=False)[..., 0]
     assert float((L.double() - Lr).abs().max() / Lr.abs().max()) <= 1e-4
     assert float((a.double() - ar).abs().max() / ar.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("N", [32, 256])
+def test_linv_entries_match_plain(cuda, N):
+    """linv_beta (the kinv kernel's L^-1 output, given Wd or not) and the
+    entries without Wd, kinv_beta and linv_stats, against the plain version in float64 on
+    the same float32 factor: normwise 1e-4 for L^-1, the lower K^-1 and
+    beta, 1e-5 for ||L^-1||_F^2; L^-1 exactly 0 above the diagonal;
+    linv_beta's beta and fro bitwise linv_stats_wd's on the same Wd, and
+    kinv_beta's linv_stats'. Each entry counts one launch."""
+    K, x = _spd(cuda, 8, N, seed=N + 2)
+    _, a, wd, L = chol.chol_solve_strips(torch.tril(K).float(), x.float())
+    before = (kinv.linv_beta_launches, kinv.kinv_beta_launches,
+              kinv.linv_stats_launches)
+    V, beta, fro = kinv.linv_beta(L, a, wd)
+    V2, beta2, fro2 = kinv.linv_beta(L, a)          # Wd by tri_inv_blocked
+    Ki, beta_k, fro_k = kinv.kinv_beta(L, a)
+    beta_s, fro_s = kinv.linv_stats(L, a)
+    b2, f2 = kinv.linv_stats_wd(L, a, wd)
+    torch.cuda.synchronize()
+    assert (kinv.linv_beta_launches, kinv.kinv_beta_launches,
+            kinv.linv_stats_launches) == (before[0] + 2, before[1] + 1,
+                                          before[2] + 1)
+    Vr, br, fr = kinv.linv_beta_plain(L.double(), a.double())
+    Kr = kinv.kinv_beta_plain(L.double(), a.double())[0]
+
+    def rel(u, v):
+        return float(((u.double() - v).abs().flatten(1).amax(1)
+                      / v.abs().flatten(1).amax(1)).max())
+    assert not torch.triu(V, 1).any() and not torch.triu(V2, 1).any()
+    assert rel(V, Vr) <= 1e-4 and rel(V2, Vr) <= 1e-4
+    assert rel(torch.tril(Ki), torch.tril(Kr)) <= 1e-4
+    for b, f in ((beta, fro), (beta2, fro2), (beta_k, fro_k),
+                 (beta_s, fro_s)):
+        assert rel(b, br) <= 1e-4
+        assert float(((f.double() - fr) / fr).abs().max()) <= 1e-5
+    assert torch.equal(beta, b2) and torch.equal(fro, f2)
+    assert torch.equal(beta_k, beta_s) and torch.equal(fro_k, fro_s)
+    blk = torch.arange(N, device=cuda) // min(N, chol.BLOCK)
+    assert not (Ki[:, blk[None, :] > blk[:, None]] != 0).any()
+
+
+@pytest.mark.parametrize("N", [32, 256])
+def test_cov_tape_bwd_linv_kernel_matches_plain(cuda, N):
+    """Kernel 5's in-tape L^-1 entry on 16 prior trees, V and beta from
+    linv_beta, against its plain version in float64 on the same inputs:
+    per particle max|err| / max|ref| <= 1e-3 for the parameter and noise
+    gradients, as kernel 5; two launches bitwise equal. LmlTapeFused under
+    INTAPE_LINV gives the value of the default backend exactly and its
+    gradient within 1e-3."""
+    cfg, nt, pt, noise, ts, mask = _prior(cuda, 16, N, seed=N + 3)
+    xs = torch.sin(7 * ts) * mask
+    Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, cfg.depth_cap,
+                      True, True)
+    _, a, wd, L = chol.chol_solve_strips(Kc, xs.expand(16, N))
+    V, beta, _ = kinv.linv_beta(L, a, wd)
+    g = torch.linspace(-1.0, 2.0, 16, device=cuda)
+    before = cov_vjp.linv_launches
+    pb, nb = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V, beta, g,
+                                       cfg.depth_cap)
+    pb2, nb2 = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V, beta, g,
+                                         cfg.depth_cap)
+    torch.cuda.synchronize()
+    assert cov_vjp.linv_launches == before + 2
+    assert torch.equal(pb, pb2) and torch.equal(nb, nb2)
+    pr, nr = cov_vjp.cov_tape_bwd_plain(
+        nt, pt.double(), ts.double(), mask.double(),
+        gp_math.kinv_from_linv(V.double()), beta.double(), g.double(),
+        cfg.depth_cap)
+    ok = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    assert int(ok.sum()) >= 8
+    err = ((pb.double() - pr).abs().flatten(1).amax(1)
+           / pr.abs().flatten(1).amax(1))
+    assert float(err[ok].max()) <= 1e-3
+    assert float(((nb.double() - nr).abs() / nr.abs())[ok].max()) <= 1e-3
+
+    def fused(intape):
+        old = cov_vjp.INTAPE_LINV
+        cov_vjp.INTAPE_LINV = intape
+        try:
+            p = pt.clone().requires_grad_(True)
+            n = noise.clone().requires_grad_(True)
+            v = cov_vjp.LmlTapeFused.apply(p, n, nt, ts, xs, mask,
+                                           cfg.depth_cap)
+            gp, gn = torch.autograd.grad(v.sum(), (p, n))
+        finally:
+            cov_vjp.INTAPE_LINV = old
+        return v.detach(), torch.cat([gp.flatten(1), gn[:, None]], 1)
+    (v0, g0), (v1, g1) = fused(False), fused(True)
+    assert torch.equal(v0, v1)
+    fin = torch.isfinite(g0).all(1) & torch.isfinite(g1).all(1)
+    assert int(fin.sum()) >= 8
+    assert float(((g1 - g0).abs().amax(1)
+                  / g0.abs().amax(1))[fin].max()) <= 1e-3

@@ -37,11 +37,16 @@ def _no_persistent_cache():
     jax.config.update("jax_compilation_cache_dir", old)
 
 
-def test_lml_tape_fused_matches_jax():
+@pytest.mark.parametrize("intape", [False, True], ids=["kinv", "intape"])
+def test_lml_tape_fused_matches_jax(intape, monkeypatch):
     """LmlTapeFused value and (params_t, noise) gradients against
     jax.value_and_grad of lml_tape_fused(interpret=True) at N=128: rtol
     1e-9 (float64; the same factorization and cotangent, different
-    summation orders)."""
+    summation orders), under both backward backends: K^-1 by the kinv
+    kernel, or (INTAPE_LINV, set in both packages) L^-1 by the kinv kernel
+    and the K^-1 tiles formed in the tape backward."""
+    monkeypatch.setattr(cov_vjp, "INTAPE_LINV", intape)
+    monkeypatch.setattr(cov_pallas_vjp, "INTAPE_LINV", intape)
     cfg, _ = _cfg()
     tab = TM.prior_tables(cfg, "cpu", F64)
     nt, pz = (a[1:3] for a in mixed_trees(7))    # tapes of 19 and 23
