@@ -27,26 +27,52 @@
 //   columns of V and rely on them. beta and fro are computed by the same
 //   code as without it, so the two agree bit for bit.
 //
-// What bounds it on this card: FP32 operations. At [64, 1024, 1024] the
-// substitution is ~N^3/3 and K^-1 another ~N^3/3 multiply-adds per
-// particle: 45.8 GFLOP with K^-1 (22.9 without) against 67 TFLOP/s, i.e.
-// 0.68 ms (0.34 ms), above the ~0.57 GB of traffic (0.17 ms at 3.35 TB/s).
+// What bounds it on this card: operations. At [64, 1024, 1024] the
+// substitution is N^3/3 flops per particle (22.9 GFLOP in all; the blocked
+// form does ~1.4x that, the diagonal blocks' Wd products included) and
+// K^-1 another N^3/3. The substitution's tile products run on the tensor
+// cores in 3xTF32 (three TF32 products per FP32 product, below), so its
+// bound is 3 x 22.9 GFLOP over 495 TFLOP/s, 0.14 ms; K^-1 stays on the
+// FP32 pipe, 0.34 ms at 67 TFLOP/s. Traffic is ~0.57 GB (0.17 ms at 3.35
+// TB/s). A substitution is a dependent chain: column block j of L^-1
+// needs X[k, j] before X[k + 1, j], so a block's time is its strip's
+// chain, and strip j's chain grows with nb - 1 - j.
 //
-// What the design does about it: the TPU kernel kept a whole particle's
-// factor in VMEM (4 MB at N = 1024); a Hopper block has 227 KB, so instead
-// every (particle, column block j) gets its own block -- 512 blocks at
-// N = 1024, P = 64 -- that walks k = j .. nb-1 with a shared-memory tiled
-// FP32 FMA product (16 x 16 threads, a (B/16)^2 register tile per thread,
-// K-steps of 16). K^-1 is a second tiled kernel, one block per (particle,
-// output block). Contractions are IEEE FP32 FMA, finer than the TPU's
-// bf16x3 (dot3); no TF32 tensor cores here. beta and fro are reduced over
-// each block's own column strip in a fixed order (fro in double), then a
-// one-warp pass sums the nb strip partials of each particle in order, so
-// results repeat bit for bit.
+// What the design does about it:
+// - One block per (particle, strip pair): strip j walks k = j+1 .. nb-1
+//   with the left-looking products S = sum_{j<=m<k} L[k, m] X[m, j]
+//   (depth (k - j) B, parked in X[k, j]) and X[k, j] = -Wd[k] S, then
+//   strip nb-1-j does the same, so each block holds a long and a short
+//   chain (at nb = 8 the slowest block is 1.25x the mean; one strip per
+//   block would be 2.5x). Blocks are numbered particle-fastest, so all
+//   longest pairs are scheduled first.
+// - Each 128 x 128 output tile is a product on the tensor cores: 8 warps,
+//   each a 64 x 32 tile of mma.sync.m16n8k8 TF32 products with FP32
+//   accumulators. Every operand x is split into hi = tf32(x) (round to
+//   nearest) and lo = tf32(x - hi), and the tile takes lo*hi' + hi*lo' +
+//   hi*hi' (3xTF32): the dropped lo*lo' term is ~2^-22 of the product, so
+//   the result is FP32-class (~1e-6 relative), finer than the reference's
+//   bf16x3 (dot3). Plain 1xTF32 (about three digits) is never used.
+// - The operands stream through a 5-stage cp.async ring of 32-deep slabs
+//   (A 128 x 32, B 32 x 128, 35 KB a stage, 175 KB in all): the next four
+//   slabs load while the current one multiplies, one barrier per slab.
+//   Shared-memory rows are padded (36 and 136 floats), so every fragment
+//   load touches 32 different banks. The strip's Wd copy and its beta and
+//   fro sums keep 16 loads in flight per thread.
+// - Strips of B < 128 (N = 32, 64) are single blocks, N = B: there is no
+//   product, only the Wd copy and the statistics.
+// - K^-1 is a second kernel on FP32 CUDA cores (kinv_lower_kernel, one
+//   block per (particle, output block), a (B/16)^2 register tile per
+//   thread); its row order is the one kernel 5c's in-tape K^-1 tile
+//   repeats, so the two gradient backends stay bitwise equal.
+// - beta and fro are reduced over each strip in a fixed order (beta by
+//   FP32 FMA, fro in double), then a one-warp pass sums the nb strip
+//   partials of each particle in order, so results repeat bit for bit and
+//   every entry's beta and fro are the same bits.
 //
 // The scratch X is written and re-read inside one block, ordered by
-// __syncthreads (block-scope visibility of global writes); its pointer is
-// never __restrict__, so no load of it takes the read-only cache path.
+// __syncthreads (block-scope visibility of global writes, cp.async reads
+// included); its pointer is never __restrict__.
 
 #include <cuda_runtime.h>
 
@@ -117,55 +143,210 @@ __device__ __forceinline__ void store(float* dst, long long ld,
       dst[(long long)(ty + 16 * i) * ld + tx + 16 * j] = sign * acc[i][j];
 }
 
-// One block per (column block j, particle p): X[:, j] by substitution,
-// then beta over the strip's B columns and the strip's share of fro.
-// kWantV: X is the output L^-1, and its strip's strict upper part is
-// written as exact zeros.
+// ---- 3xTF32 tensor-core tile product (linv_kernel, B = 128) --------------
+constexpr int kTB = 128;                  // output tile
+constexpr int kSlab = 32;                 // K-depth of one pipeline stage
+constexpr int kStages = 5;
+constexpr int kLdA = kSlab + 4;           // A slab [128][36]
+constexpr int kLdB = kTB + 8;             // B slab [32][136]
+constexpr int kStageFloats = kTB * kLdA + kSlab * kLdB;
+constexpr int kTcSmem = kStages * kStageFloats * (int)sizeof(float);
+constexpr int kU = 16;  // loads in flight per thread in the strip's copy and sums
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// x = hi + lo + (a remainder ~2^-22 |x|), hi and lo TF32 (round to nearest).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Warp w owns rows 64 (w / 4) .. +64 and columns 32 (w % 4) .. +32 of the
+// tile: 4 x 4 mma tiles of 16 x 8, 4 accumulators each per thread.
+using TcAcc = float[4][4][4];
+
+// Slab k (32 deep) of A [128 x K] (row-major, lda) and Bm [K x 128]
+// (row-major, ldb) into one stage: 2 x 1024 16-byte copies, 8 per thread.
+__device__ __forceinline__ void load_slab(float* stage, const float* A,
+                                          long long lda, const float* Bm,
+                                          long long ldb, int k) {
+  float* sA = stage;
+  float* sB = stage + kTB * kLdA;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int q = threadIdx.x + u * kThreads;
+    const int r = q >> 3, c = (q & 7) * 4;
+    cp_async16(sA + r * kLdA + c, A + (long long)r * lda + k + c);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int q = threadIdx.x + u * kThreads;
+    const int r = q >> 5, c = (q & 31) * 4;
+    cp_async16(sB + r * kLdB + c, Bm + (long long)(k + r) * ldb + c);
+  }
+}
+
+__device__ __forceinline__ void mma_slab(const float* stage, TcAcc& acc) {
+  const float* sA = stage;
+  const float* sB = stage + kTB * kLdA;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int k8 = 0; k8 < kSlab; k8 += 8) {
+    unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float* a = sA + (wm + mt * 16 + g) * kLdA + k8 + t;
+      split_tf32(a[0], ah[mt][0], al[mt][0]);
+      split_tf32(a[8 * kLdA], ah[mt][1], al[mt][1]);
+      split_tf32(a[4], ah[mt][2], al[mt][2]);
+      split_tf32(a[8 * kLdA + 4], ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* b = sB + (k8 + t) * kLdB + wn + nt * 8 + g;
+      split_tf32(b[0], bh[nt][0], bl[nt][0]);
+      split_tf32(b[4 * kLdB], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+        mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+        mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+      }
+  }
+}
+
+// acc = A [128 x K] * Bm [K x 128], K a multiple of 32, through the
+// kStages-deep cp.async ring in smem. Ends with every copy landed and a
+// barrier, so the caller may overwrite what A and Bm point to.
+__device__ void gemm_tc(const float* A, long long lda, const float* Bm,
+                        long long ldb, int K, TcAcc& acc, float* smem) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  const int nk = K / kSlab;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_slab(smem + s * kStageFloats, A, lda, Bm, ldb, s * kSlab);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // slab kt landed for all; slab kt - 1 consumed by all
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk)
+      load_slab(smem + (nxt % kStages) * kStageFloats, A, lda, Bm, ldb,
+                nxt * kSlab);
+    cp_commit();
+    mma_slab(smem + (kt % kStages) * kStageFloats, acc);
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// dst[r][c] = sign * acc for the 128 x 128 tile at dst (leading dim ld).
+__device__ __forceinline__ void store_tc(float* dst, long long ld,
+                                         const TcAcc& acc, float sign) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* d = dst + (long long)(wm + mt * 16 + g) * ld + wn + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(d) =
+          make_float2(sign * acc[mt][nt][0], sign * acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(d + 8 * ld) =
+          make_float2(sign * acc[mt][nt][2], sign * acc[mt][nt][3]);
+    }
+}
+
+// Column strip j of particle p: X[:, j] by substitution, then beta over the
+// strip's B columns and the strip's share of fro. kWantV: X is the output
+// L^-1, and the strip's strict upper part is written as exact zeros.
 template <int B, bool kWantV>
-__global__ void __launch_bounds__(kThreads)
-linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
-            const float* __restrict__ alpha, float* X,
-            float* __restrict__ beta, double* __restrict__ fro_part,
-            int N) {
-  __shared__ float sA[kBK * (B + 1)];
-  __shared__ float sB[kBK * (B + 1)];
-  __shared__ float sbeta[kThreads];
-  __shared__ double sfro[kThreads / 32];
+__device__ void linv_strip(const float* __restrict__ L,
+                           const float* __restrict__ Wd,
+                           const float* __restrict__ alpha, float* X,
+                           float* __restrict__ beta,
+                           double* __restrict__ fro_part, int N, int p, int j,
+                           float* smem, float* sbeta, double* sfro) {
   const int nb = N / B;
-  const int j = blockIdx.x, p = blockIdx.y;
   const long long NN = (long long)N * N;
   const float* Lp = L + p * NN;
   const float* Wp = Wd + (long long)p * nb * B * B;
   float* Xp = X + p * NN;
   const int c0 = j * B;
 
-  // X[j, j] = Wd[j] (lower triangular; its zeros above come along).
-  for (int e = threadIdx.x; e < B * B; e += kThreads) {
-    const float w = Wp[(long long)j * B * B + e];
-    Xp[(long long)(c0 + e / B) * N + c0 + e % B] =
-        (kWantV && e % B > e / B) ? 0.0f : w;
+  // X[j, j] = Wd[j] (lower triangular; its zeros above come along), kU
+  // loads in flight per thread.
+  for (int e0 = threadIdx.x; e0 < B * B; e0 += kU * kThreads) {
+    float w[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * kThreads;
+      w[u] = e < B * B ? Wp[(long long)j * B * B + e] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < B * B)
+        Xp[(long long)(c0 + e / B) * N + c0 + e % B] =
+            (kWantV && e % B > e / B) ? 0.0f : w[u];
+    }
   }
   if (kWantV)
     for (int e = threadIdx.x; e < c0 * B; e += kThreads)
       Xp[(long long)(e / B) * N + c0 + e % B] = 0.0f;
   __syncthreads();
 
-  float acc[B / 16][B / 16];
-  for (int k = j + 1; k < nb; ++k) {
-    const int r0 = k * B;
-    // S = sum_{j<=m<k} L[k, m] X[m, j], parked in X[k, j] ...
-    zero<B>(acc);
-    gemm_acc<B, false>(Lp + (long long)r0 * N + c0, N,
-                       Xp + (long long)c0 * N + c0, N, r0 - c0, acc, sA,
-                       sB);
-    store<B>(Xp + (long long)r0 * N + c0, N, acc, 1.0f);
-    __syncthreads();
-    // ... then X[k, j] = -Wd[k] S (all reads of S end before the store).
-    zero<B>(acc);
-    gemm_acc<B, false>(Wp + (long long)k * B * B, B,
-                       Xp + (long long)r0 * N + c0, N, B, acc, sA, sB);
-    store<B>(Xp + (long long)r0 * N + c0, N, acc, -1.0f);
-    __syncthreads();
+  if constexpr (B == kTB) {
+    TcAcc acc;
+    for (int k = j + 1; k < nb; ++k) {
+      float* Xkj = Xp + (long long)k * B * N + c0;
+      // S = sum_{j<=m<k} L[k, m] X[m, j], parked in X[k, j] ...
+      gemm_tc(Lp + (long long)k * B * N + c0, N, Xp + (long long)c0 * N + c0,
+              N, (k - j) * B, acc, smem);
+      store_tc(Xkj, N, acc, 1.0f);
+      __syncthreads();
+      // ... then X[k, j] = -Wd[k] S (gemm_tc has read all of S on return).
+      gemm_tc(Wp + (long long)k * B * B, B, Xkj, N, B, acc, smem);
+      store_tc(Xkj, N, acc, -1.0f);
+      __syncthreads();
+    }
   }
 
   // beta[c] = sum_{r >= c0} X[r, c] alpha[r]; fro over the strip.
@@ -174,7 +355,22 @@ linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
   const float* ap = alpha + (long long)p * N;
   float bacc = 0.0f;
   double facc = 0.0;
-  for (int r = c0 + g; r < N; r += G) {
+  // Rows r = c0 + g, c0 + g + G, ... in order, kU loads in flight.
+  int r = c0 + g;
+  for (; r + (kU - 1) * G < N; r += kU * G) {
+    float v[kU], al[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      v[u] = Xp[(long long)(r + u * G) * N + c0 + c];
+      al[u] = ap[r + u * G];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      bacc = fmaf(v[u], al[u], bacc);
+      facc += (double)v[u] * (double)v[u];
+    }
+  }
+  for (; r < N; r += G) {
     const float v = Xp[(long long)r * N + c0 + c];
     bacc = fmaf(v, ap[r], bacc);
     facc += (double)v * (double)v;
@@ -194,6 +390,26 @@ linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
     for (int w = 0; w < kThreads / 32; ++w) s += sfro[w];
     fro_part[(long long)p * nb + j] = s;
   }
+}
+
+// One block per (particle p = blockIdx.x, strip pair q = blockIdx.y):
+// strip q, then strip nb-1-q (the middle strip of an odd nb alone).
+template <int B, bool kWantV>
+__global__ void __launch_bounds__(kThreads, 1)
+linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
+            const float* __restrict__ alpha, float* X,
+            float* __restrict__ beta, double* __restrict__ fro_part,
+            int N) {
+  extern __shared__ __align__(16) float smem[];  // gemm_tc's ring (B = 128)
+  __shared__ float sbeta[kThreads];
+  __shared__ double sfro[kThreads / 32];
+  const int nb = N / B;
+  const int p = blockIdx.x, q = blockIdx.y;
+  linv_strip<B, kWantV>(L, Wd, alpha, X, beta, fro_part, N, p, q, smem, sbeta,
+                        sfro);
+  if (nb - 1 - q != q)
+    linv_strip<B, kWantV>(L, Wd, alpha, X, beta, fro_part, N, p, nb - 1 - q,
+                          smem, sbeta, sfro);
 }
 
 // One block per (bj, bi, particle): K^-1[bi, bj] = sum_{k >= bi}
@@ -231,9 +447,14 @@ int launch(const float* L, const float* wd, const float* alpha, float* X,
            float* beta, double* fro_part, float* fro, float* kinv, int P,
            int N, cudaStream_t stream) {
   const int nb = N / B;
-  linv_kernel<B, kWantV><<<dim3(nb, P), kThreads, 0, stream>>>(
+  const int smem = B == kTB ? kTcSmem : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      linv_kernel<B, kWantV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  linv_kernel<B, kWantV><<<dim3(P, (nb + 1) / 2), kThreads, smem, stream>>>(
       L, wd, alpha, X, beta, fro_part, N);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (kinv != nullptr) {
     kinv_lower_kernel<B><<<dim3(nb, nb, P), kThreads, 0, stream>>>(X, kinv,
@@ -249,8 +470,10 @@ template <bool kWantV>
 int dispatch(const void* L, const void* wd, const void* alpha, void* X,
              void* beta, void* fro_part, void* fro, void* kinv, int P, int N,
              void* stream) {
-  const int B = N < 128 ? N : 128;
-  if (P < 1 || N % B != 0) return (int)cudaErrorInvalidValue;
+  const int B = N < kTB ? N : kTB;
+  // B < 128 only for N = B: one strip, no tile product.
+  if (P < 1 || N % B != 0 || (B < kTB && N != B))
+    return (int)cudaErrorInvalidValue;
   const float* l = (const float*)L;
   const float* w = (const float*)wd;
   const float* a = (const float*)alpha;

@@ -25,11 +25,13 @@ back to the CPU):
      kinv_beta_strips and linv_stats_wd against the plain version in f64
      on the same f32 factor; gates: normwise relative <= 1e-4 for the
      lower K^-1 and beta, <= 1e-5 for ||L^-1||_F^2, strictly-upper blocks
-     exactly 0;
+     exactly 0; reported, not gated: the same errors on the factor of the
+     64 prior trees' grams (phase 6's), with the grams' condition numbers;
   6. bwd (kernel 5) at [64, 1024, 1024] on the 64 prior trees of phase 3,
-     K^-1 and beta from the kinv kernel, g = 1: against its plain version
-     in f64 on the same inputs, per particle max|err| / max|ref| <= 1e-3
-     for the parameter and the noise gradients; two runs bitwise equal;
+     K^-1 and beta from the kinv kernel on phase 5's prior-tree factor,
+     g = 1: against its plain version in f64 on the same inputs, per
+     particle max|err| / max|ref| <= 1e-3 for the parameter and the noise
+     gradients; two runs bitwise equal;
   7. grad -- LmlTapeFused on the 64 prior particles at N = 1024: the value
      under grad torch.equal to the value-only LML; the z-space gradient
      against float64 autograd through the plain dense path, normwise
@@ -97,9 +99,11 @@ back to the CPU):
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
-version's and a library call's (CUDA events), and its bound (the larger of
-the bytes it must move over 3.35 TB/s and its operations over the card's
-peak for their type); the last line is the device JSON.
+version's and a library call's (CUDA events), and its bound: the largest
+of the bytes it must move over 3.35 TB/s and its operations over the peak
+of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
+special functions), with that pipe named (`pipe`); the last line is the
+device JSON.
 """
 
 import json
@@ -113,11 +117,13 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, P_MAIN = 1024, 64
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
-# HBM3 bandwidth. Special functions (exp, log, sin, reciprocal): 16
-# results per clock per SM on sm_90 (NVIDIA's CUDA C++ documentation,
-# arithmetic instruction throughput table) x 132 SMs x 1.98 GHz.
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, TF32
+# on the tensor cores (dense) and HBM3 bandwidth. Special functions (exp,
+# log, sin, reciprocal): 16 results per clock per SM on sm_90 (NVIDIA's
+# CUDA C++ documentation, arithmetic instruction throughput table) x 132
+# SMs x 1.98 GHz.
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
 
@@ -149,13 +155,19 @@ def phase(name, msg):
     _t_phase = now
 
 
-def bound(flops, sfu, nbytes):
-    """(bound_ms, bound_by): the larger of the operation time (FP32 and
-    special-function pipes, whichever is slower) and the byte time."""
-    op_ms = max(flops / PEAK_F32, sfu / PEAK_SFU) * 1e3
-    byte_ms = nbytes / PEAK_BYTES * 1e3
-    return ((op_ms, "operations") if op_ms >= byte_ms
-            else (byte_ms, "bytes"))
+def bound(flops, sfu, nbytes, tf32=0.0):
+    """(bound_ms, bound_by, pipe): the largest of the times the work needs
+    on each pipe it runs on -- FP32 `flops` on the CUDA cores, TF32
+    `tf32` flops on the tensor cores (3xTF32 counts its three products),
+    `sfu` special-function calls -- and the byte time. The pipes can run
+    side by side, so the slowest one is the least time and no share of it
+    reads above 100%."""
+    pipes = {"fp32": flops / PEAK_F32, "tf32 tensor cores": tf32 / PEAK_TF32,
+             "special functions": sfu / PEAK_SFU,
+             "memory": nbytes / PEAK_BYTES}
+    pipe = max(pipes, key=pipes.get)
+    return (pipes[pipe] * 1e3, "bytes" if pipe == "memory" else
+            "operations", pipe)
 
 
 def tape_cost(node_type, depth_cap, table):
@@ -481,33 +493,67 @@ def main():
     kv_lib_ms = cuda_ms(torch, lib_kinv, 5)
     NN = P_MAIN * N_MAIN * N_MAIN
     # Triangular inverse and L^-T L^-1: N^3 / 3 flops each (LAPACK trtri,
-    # lauum); read L, Wd, alpha once, write K^-1, beta, fro once.
-    kinv_bound = bound(2 * P_MAIN * N_MAIN ** 3 / 3, 0,
+    # lauum). The inverse runs on the tensor cores in 3xTF32 (three TF32
+    # products for each FP32 one), L^-T L^-1 on the FP32 pipe. Read L, Wd,
+    # alpha once, write K^-1, beta, fro once.
+    sub_tf32 = 3 * P_MAIN * N_MAIN ** 3 / 3
+    kinv_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
                        4 * (2 * NN + P_MAIN * N_MAIN * Bk + 3 * P_MAIN
-                            * N_MAIN))
-    stats_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
-                        4 * (NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN * N_MAIN))
+                            * N_MAIN), tf32=sub_tf32)
+    stats_bound = bound(0, 0, 4 * (NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
+                                   * N_MAIN), tf32=sub_tf32)
+    # Reported, not gated: the same entry on the factor of phase 6, the
+    # 64 prior trees' grams at N = 1024 (768 points active), whose
+    # conditioning is real; condition numbers from the float64 gram.
+    Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
+    _, a_c, wd_c, L_c = chol.chol_solve_strips(Kc, xs_main.expand(P_MAIN,
+                                                                  -1))
+    del Kc
+    Ki_c, beta_c, fro_c = kinv.kinv_beta_strips(a_c, wd_c, L_c)
+    Kir, beta_r2, fro_r2 = kinv.kinv_beta_plain(L_c.double(), a_c.double())
+    prior_errs = torch.stack([
+        per_particle_rel(torch.tril(Ki_c), torch.tril(Kir)),
+        per_particle_rel(beta_c, beta_r2),
+        ((fro_c.double() - fro_r2) / fro_r2).abs()], 1).cpu()
+    del Kir
+    K64 = cov.cov_tape_plain(nt, pt.double(), noise.double(), ts.double(),
+                             ts.double(), mask.double(), mask.double(), D,
+                             True, False)
+    ev = torch.linalg.eigvalsh(K64)
+    cond_c = torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0],
+                         float("inf")).cpu()
+    del K64, ev
+    fin_c = torch.isfinite(prior_errs).all(1)
+    well_c = fin_c & (cond_c < 1e5)
+
+    def worst(sel):
+        return ", ".join(f"{float(prior_errs[sel, i].max()):.3e}"
+                         if sel.any() else "none" for i in range(3))
+    prior_msg = (f"on the prior trees' factor (phase 6; reported, not "
+                 f"gated): worst K^-1, beta, fro rel on {int(well_c.sum())}"
+                 f" particles with cond < 1e5: {worst(well_c)}; on the "
+                 f"{int((fin_c & ~well_c).sum())} with cond >= 1e5: "
+                 f"{worst(fin_c & ~well_c)}; {int((~fin_c).sum())} not "
+                 f"finite; cond min / median / max "
+                 f"{float(cond_c.min()):.3e} / "
+                 f"{float(cond_c.median()):.3e} / {float(cond_c.max()):.3e}")
     phase("kinv", f"kinv_beta_strips and linv_stats_wd ok at [64, 1024, "
           f"1024]: vs f64 plain on the same f32 factor, normwise rel K^-1 "
           f"{kinv_errs[0]:.3e}, beta {kinv_errs[1]:.3e}, fro rel "
           f"{kinv_errs[2]:.3e} (gates 1e-4, 1e-4, 1e-5), max abs K^-1 err "
           f"{kinv_abs:.3e} (beta and fro {stats_abs:.3e}); strictly-upper "
           f"blocks 0; stats bitwise equal "
-          f"across the two entries; ms kinv_beta_strips (wrapper, kernels "
+          f"across the two entries; {prior_msg}; ms kinv_beta_strips "
+          f"(wrapper, kernels "
           f"alone, plain, cholesky_inverse+matvec) ({kv_ms:.4f}, "
           f"{kv_dev_ms:.4f}, {kv_plain_ms:.4f}, {kv_lib_ms:.4f}), bound "
-          f"{kinv_bound[0]:.4f} ms ({kinv_bound[1]}); linv_stats_wd "
+          f"{kinv_bound[0]:.4f} ms ({kinv_bound[2]}); linv_stats_wd "
           f"(wrapper, kernels alone, plain) ({st_ms:.4f}, {st_dev_ms:.4f}, "
           f"{st_plain_ms:.4f}), bound "
-          f"{stats_bound[0]:.4f} ms ({stats_bound[1]})")
+          f"{stats_bound[0]:.4f} ms ({stats_bound[2]})")
     del Ki, Kf
 
-    # ---- 6. bwd (kernel 5) --------------------------------------------
-    Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
-    _, a_c, wd_c, L_c = chol.chol_solve_strips(Kc, xs_main.expand(P_MAIN,
-                                                                  -1))
-    del Kc
-    Ki_c, beta_c, _ = kinv.kinv_beta_strips(a_c, wd_c, L_c)
+    # ---- 6. bwd (kernel 5), on phase 5's prior-tree factor ---------------
     g1 = torch.ones(P_MAIN, device=dev)
     pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
     pb2, nb2 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki_c, beta_c, g1, D)
@@ -802,14 +848,15 @@ def main():
                           lin_names, 5)
     # L^-1 out: read L, Wd, alpha, write L^-1, beta, fro. Without Wd the
     # B^3 / 3 flops of each diagonal-block inverse join, Wd is not read.
-    linv_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
-                       4 * (2 * NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
-                            * N_MAIN))
+    # The substitution on the tensor cores (3xTF32) as in phase 5; Wd's
+    # inverses (tri_inv_blocked) and L^-T L^-1 on the FP32 pipe.
+    linv_bound = bound(0, 0, 4 * (2 * NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
+                                  * N_MAIN), tf32=sub_tf32)
     wd_flops = P_MAIN * N_MAIN * Bk ** 2 / 3
-    kinvb_bound = bound(2 * P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
-                        4 * (2 * NN + 2 * P_MAIN * N_MAIN))
-    statsb_bound = bound(P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
-                         4 * (NN + 2 * P_MAIN * N_MAIN))
+    kinvb_bound = bound(P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
+                        4 * (2 * NN + 2 * P_MAIN * N_MAIN), tf32=sub_tf32)
+    statsb_bound = bound(wd_flops, 0, 4 * (NN + 2 * P_MAIN * N_MAIN),
+                         tf32=sub_tf32)
     intape_msgs = [
         f"(a) at [64, 1024, 1024] vs f64 plain on the same f32 factor "
         f"(matrix, beta, fro; gates 1e-4, 1e-4, 1e-5): linv_beta "
@@ -823,11 +870,12 @@ def main():
         f"(wrapper, kernels alone, plain, library) linv_beta ({lb_ms:.4f}, "
         f"{lb_dev_ms:.4f}, {lb_plain_ms:.4f}, {lib_linv_ms:.4f} "
         f"solve_triangular+matvec), bound {linv_bound[0]:.4f} "
-        f"({linv_bound[1]}); kinv_beta ({kb_ms:.4f}, {kb_dev_ms:.4f}, "
+        f"({linv_bound[2]}); kinv_beta ({kb_ms:.4f}, {kb_dev_ms:.4f}, "
         f"{kv_plain_ms:.4f}, {kv_lib_ms:.4f} cholesky_inverse+matvec), "
-        f"bound {kinvb_bound[0]:.4f}; linv_stats ({ls_ms:.4f}, "
-        f"{ls_dev_ms:.4f}, {st_plain_ms:.4f}, {lib_linv_ms:.4f}), bound "
-        f"{statsb_bound[0]:.4f}"]
+        f"bound {kinvb_bound[0]:.4f} ({kinvb_bound[2]}); linv_stats "
+        f"({ls_ms:.4f}, {ls_dev_ms:.4f}, {st_plain_ms:.4f}, "
+        f"{lib_linv_ms:.4f}), bound {statsb_bound[0]:.4f} "
+        f"({statsb_bound[2]})"]
     del L_s, wd_s, eye_n
 
     # (b) kernel 5's in-tape entry on phase 3's trees, phase 6's factor.
@@ -1356,7 +1404,7 @@ def main():
                 "max_abs_err": err, "ms": ms,
                 "device_ms": None if math.isnan(dev_ms) else dev_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": lib_ms}
+                "bound_by": bnd[1], "pipe": bnd[2], "library_ms": lib_ms}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",

@@ -80,6 +80,63 @@ def test_chol_kernel_matches_f64(cuda, N):
     assert torch.isfinite(d[:2]).all()
 
 
+def _panel_input(dev, P, B, seed):
+    """[P, B, B] float32 SPD blocks (condition number <= 5), handed over
+    as a strided view (row stride B + 7, offset 3) of a larger batch; the
+    strict upper triangle holds junk the kernel must not read."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn(P, B, B, generator=gen, device=dev, dtype=torch.float64)
+    K = X @ X.mT / B + torch.eye(B, device=dev, dtype=torch.float64)
+    big = torch.full((P, B + 7, B + 7), 1e30, device=dev)
+    view = big[:, 3:3 + B, 3:3 + B]
+    view.copy_(torch.where(torch.ones(B, B, device=dev, dtype=torch.bool)
+                           .tril(), K, torch.full_like(K, 1e30)))
+    return view, K
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 15, 16, 17, 72, 127, 128])
+def test_panel_factor_matches_f64(cuda, B):
+    """Kernel 2 alone at every kind of width (below, at and past the
+    16-column sub-panel, ragged, full): L and L^-1 within 1e-4 normwise
+    of panel_factor_plain in float64 on the same blocks, exact zeros above
+    the diagonal, one launch, two launches bitwise equal."""
+    A, K = _panel_input(cuda, 8, B, seed=B)
+    before = chol.launches
+    L, W = chol.panel_factor(A)
+    L2, W2 = chol.panel_factor(A)
+    torch.cuda.synchronize()
+    assert chol.launches == before + 2
+    assert torch.equal(L, L2) and torch.equal(W, W2)
+    Lr, Wr = chol.panel_factor_plain(K)
+    for got, ref in ((L, Lr), (W, Wr)):
+        err = ((got.double() - ref).abs().flatten(1).amax(1)
+               / ref.abs().flatten(1).amax(1))
+        assert float(err.max()) <= 1e-4
+        assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("bad", [0, 15, 16, 127])
+def test_panel_factor_nan_pivot(cuda, bad):
+    """A pivot that is not > 0 at column 0, at the last and the first
+    column of a 16-column sub-panel, and at the last column: NaN on the
+    diagonal from that column on and in L^-1's rows from there, finite
+    before it; the other particles untouched; zeros above the diagonal
+    stay exact."""
+    A, _ = _panel_input(cuda, 4, 128, seed=bad)
+    Ab = A.clone()
+    Ab[1, bad, bad] = -1.0
+    L, W = chol.panel_factor(Ab)
+    L0, W0 = chol.panel_factor(A)
+    torch.cuda.synchronize()
+    d = torch.diagonal(L[1])
+    assert torch.isnan(d[bad:]).all() and torch.isfinite(d[:bad]).all()
+    assert torch.isnan(W[1, bad:, :bad + 1]).all()
+    assert torch.isfinite(torch.tril(W[1])[:bad]).all()
+    assert not torch.triu(L, 1).any() and not torch.triu(W, 1).any()
+    keep = torch.tensor([0, 2, 3], device=cuda)
+    assert torch.equal(L[keep], L0[keep]) and torch.equal(W[keep], W0[keep])
+
+
 def _spd(dev, P, N, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     X = torch.randn(P, N, N, generator=gen, device=dev, dtype=torch.float64)
@@ -88,12 +145,14 @@ def _spd(dev, P, N, seed):
                           dtype=torch.float64)
 
 
-@pytest.mark.parametrize("N", [32, 256])
+@pytest.mark.parametrize("N", [32, 256, 512, 1024])
 def test_kinv_kernel_matches_plain(cuda, N):
     """kinv_beta_strips and linv_stats_wd on the card against the plain
     version in float64 on the same float32 factor: normwise 1e-4 for the
-    lower K^-1 and beta, 1e-5 for ||L^-1||_F^2 (float32 FMA on grams of
-    condition number <= 5); strictly-upper blocks exactly 0."""
+    lower K^-1 and beta, 1e-5 for ||L^-1||_F^2 (3xTF32 tile products and
+    float32 FMA on grams of condition number <= 5); strictly-upper blocks
+    exactly 0. N = 512 and 1024 (4 and 8 column strips) pair long strips
+    with short ones in one block."""
     K, x = _spd(cuda, 8, N, seed=N)
     _, a, wd, L = chol.chol_solve_strips(torch.tril(K).float(), x.float())
     before = (kinv.strips_launches, kinv.stats_launches)
@@ -253,7 +312,7 @@ def test_ragged_last_panel_matches_f64(cuda):
     assert float((a.double() - ar).abs().max() / ar.abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("N", [32, 256])
+@pytest.mark.parametrize("N", [32, 256, 512, 1024])
 def test_linv_entries_match_plain(cuda, N):
     """linv_beta (the kinv kernel's L^-1 output, given Wd or not) and the
     entries without Wd, kinv_beta and linv_stats, against the plain version in float64 on
