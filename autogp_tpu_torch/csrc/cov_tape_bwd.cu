@@ -31,8 +31,8 @@
 // cov_slot_bwd.cu).
 //
 // The in-tape L^-1 entry takes V = L^-1 [P, N, N] (exact zeros above the
-// diagonal, kinv.cu's autogp_linv_beta) in place of K^-1. Before its
-// sweeps each block forms the K^-1 elements its threads own, K^-1[i, j] =
+// diagonal, kinv.cu's autogp_linv_beta) in place of K^-1. Before the
+// sweeps of each tile the block forms that tile of K^-1, K^-1[i, j] =
 // sum_{r >= 32 ti} V[r, i] V[r, j] (exact: V[r, i] = 0 for r < i), from
 // the two column strips V[32 ti:, ti-tile] and V[32 ti:, tj-tile] staged
 // through shared memory in K-steps of 32 rows, with IEEE FP32 FMA in
@@ -40,40 +40,68 @@
 // same order, so the two K^-1 agree bit for bit); the cotangent is then
 // formed as in the fused entry. K^-1 never exists in device memory. The
 // contraction costs 2 * 32^2 * (N - 32 ti) FP32 operations per tile, ~0.39
-// GFLOP per particle at N = 1024 (25 GFLOP at P = 64, 0.37 ms at 67
-// TFLOP/s), against 4 MB of V per particle read once: this entry is bound
-// by those operations. The staging strips reuse the memory of the value
-// and adjoint stacks, idle until the sweeps, and the K^-1 tile takes 4 KB
-// more, so a block's shared memory and occupancy stay the fused entry's
-// (97 KB at M = 31, two blocks per SM). Each thread keeps 32 / RY partial
-// sums in registers (Q, a template argument picked from blockDim.y).
+// GFLOP per particle at N = 1024, against 4 MB of V per particle read
+// once: this entry is bound by those operations.
 //
 // The unfused entry reads kbar = Kbar_ij (times m_i m_j when `masked`)
-// from its input instead: no symmetry is assumed, every tile of the matrix
-// is visited with weight 1, and N need not be a multiple of the tile (edge
-// threads run on a clamped element with cotangent 0, so that every warp
-// reduction stays full).
+// from its input instead: no symmetry is assumed, every element of every
+// tile of the matrix is visited with weight 1, and N need not be a
+// multiple of the tile (edge threads run on a clamped element with
+// cotangent 0).
 //
-// What bounds it on this card: FP32 arithmetic and transcendentals, not
-// memory. Each lower element reads 4 bytes of Kinv and runs two sweeps of
-// the tape (~5-15 instructions, each a few exp/log/sin plus a warp
-// reduction per gradient term); at [64, 1024, 1024] that is 33.6 M
-// elements, ~134 MB read.
+// What bounds it on this card: instruction issue. An element runs the tape
+// twice (up to 2^D - 1 positions, a few in most trees), each position a few
+// shared-memory reads and a formula whose accurate expf / logf / sinf and
+// IEEE divisions take ~10-30 instructions each, with double adjoint
+// arithmetic; the special-function bound at [64, 1024, 1024] (0.027 ms)
+// counts one operation for each of those sequences. The design this
+// replaces (one block per 32 x 32 lower tile, a warp reduction per
+// gradient term per element, stacks sized by the heap's M, two 97 KB
+// blocks per SM) took 1.40 ms there; its clock split
+// (scripts/tape_bwd_split.py, per tile, thread 0): staging 9%, the
+// cotangent's loads 19%, forward sweep 21%, reverse sweep 34%, the
+// per-term warp reductions 14%, the tile's partial 4%, and the 43% of
+// lower tiles wholly masked at 768 of 1024 points cost as much as active
+// ones. A tile of a long tape took up to 4x the mean.
 //
-// What the design does about it: one block per (particle, lower 32 x 32
-// tile) -- tiles wholly above the diagonal are never launched -- and one
-// thread per element column, RY rows of threads each stepping over 32 / RY
-// rows. The tape and parameters sit in shared memory, so every instruction
-// is a broadcast read and its accumulator index slot * 3 + k is uniform
-// across the block. Values (float) and adjoints (double) live in shared
-// memory laid out [tape position][thread] (no bank conflicts, no
-// dynamically indexed per-thread arrays in local memory): M * 12 * 256 B
-// = 93 KB at M = 31, above the 48 KB default, so the launch opts in. Each
-// gradient term is summed over the warp by xor shuffles and added by lane 0
-// into the warp's row of a double accumulator, warps are summed in order
-// into per-tile partials [P, n_tiles, 3M + 1], and a second small pass sums
-// the tiles of each particle in order. No atomics: gradients repeat bit
-// for bit from run to run.
+// What the design does about it:
+// - Each block walks a contiguous run of its particle's tiles: in the
+//   fused entries only the active lower tiles, those whose 32 rows and 32
+//   columns each hold a point with mask != 0 (the block lists the active
+//   tile rows from the mask itself, with ballots: no host sync), in the
+//   unfused entry all of them. The grid is (chunks, P), chunks =
+//   min(tiles, kTargetBlocks / P), ~16 waves, so the staging, the
+//   accumulator zeroing and the final reduction are paid once per run of
+//   ~3-5 tiles. In the fused entries an element whose cotangent is
+//   structurally zero (above the diagonal, or masked) runs no sweep.
+// - blockIdx.y is a rank, not a particle: each block finds the particle
+//   of that rank in the order of decreasing tape length, so the blocks of
+//   the longest tapes start first and the short ones fill in behind them
+//   (longest-processing-time-first, against the tail a long tape left).
+// - Each thread adds its gradient terms into its own double accumulators
+//   in shared memory ([term][thread], conflict-free), under a compact
+//   per-tape term index (position q's terms at off[q] + k, a warp scan;
+//   <= 2 len + 2 terms with the noise), over every element it visits.
+//   Once per block, after the last tile, each warp sums its lanes term by
+//   term with xor shuffles and the warps are summed in order into the
+//   block's partial [P, chunks, 3M + 1]; a second small pass sums each
+//   particle's chunks in order. No atomics: the gradient repeats bit for
+//   bit from run to run, and the fused and in-tape entries share every
+//   sum.
+// - Values (float), adjoints (double) and the accumulators are sized by
+//   the block's own tape, not by the heap's M: the block runs
+//   T = min(256, budget / (12 len + 8 terms)) of its 256 threads (a
+//   multiple of 32 from 32 up), so a tape of up to 5 positions uses all
+//   256 within a 48 KB budget and four blocks fit an SM (32 warps, 64
+//   registers; three for the in-tape entry, 80 registers); a long tape
+//   runs on fewer threads of the same block.
+//   When the grid is too small to fill the card (one tile per particle at
+//   N <= 32, the online run's bucket), the budget grows to the share of
+//   an SM that still runs the whole grid at once, so that a long tape
+//   keeps its threads. The in-tape entry's staging strips take the stack
+//   memory, idle until a tile's sweeps.
+// - A thread loads the next element's K^-1 (or cotangent) value before
+//   the current element's sweeps.
 //
 // Precision: the gradient is a sum of ~5e5 terms per particle at N = 1024
 // that cancel heavily when the gram is ill-conditioned (beta beta^T and
@@ -89,14 +117,67 @@ namespace {
 
 using namespace autogp;
 
-// Bytes of the value and adjoint stacks [M][T]; with LINV at least the
-// two 32 x 32 staging strips of the K^-1 contraction, which run before the
-// sweeps and share that memory.
-__host__ __device__ inline int stack_bytes(int M, int T, bool linv) {
-  const int stacks = M * T * 12;
-  const int staging = 2 * kTile * kTile * (int)sizeof(float);
-  return (linv && stacks < staging) ? staging : stacks;
+constexpr int kThreads = 256;             // blockDim = (32, 8)
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;             // blocks per SM the budget allows
+                                          // (3 for the in-tape entry, whose
+                                          // K^-1 tile takes 4 KB more)
+constexpr int kBudget = 48 * 1024;        // accumulators + stacks, bytes,
+                                          // when the grid fills the card
+constexpr int kStaging = 2 * kTile * kTile * (int)sizeof(float);
+constexpr int kTargetBlocks = 8448;       // 16 x 4 blocks x 132 SMs
+
+// Gradient terms of a tape instruction of type t: the acc(base + k) calls
+// of ref_leaf_grad / ref_op_adjoint.
+__host__ __device__ inline int terms_of(int t) {
+  switch (t) {
+    case CONSTANT:
+    case WHITE_NOISE:
+    case CHANGEPOINT:
+      return 1;
+    case SQUARED_EXPONENTIAL:
+      return 2;
+    case LINEAR:
+    case GAMMA_EXPONENTIAL:
+    case PERIODIC:
+      return 3;
+    default:
+      return 0;
+  }
 }
+
+// Threads a block runs for a tape of `len` positions and `n_terms` terms
+// (the noise's included): the most, up to kThreads and a multiple of 32
+// from 32 up, whose accumulators (8 n_terms each) and stacks (12 len each,
+// or the in-tape staging strips if larger) fit `budget` bytes.
+__host__ __device__ inline int bwd_threads(int len, int n_terms, bool linv,
+                                           int budget) {
+  int t = budget / (12 * len + 8 * n_terms);
+  if (linv) t = min(t, (budget - kStaging) / (8 * n_terms));
+  t = min(t, kThreads);
+  return t >= 32 ? t / 32 * 32 : max(t, 1);
+}
+
+// Blocks per particle: kTargetBlocks shared by the batch, at most one per
+// tile.
+__host__ __device__ inline int bwd_chunks(int P, int n_tiles) {
+  return min(n_tiles, max(1, kTargetBlocks / P));
+}
+
+// Tiles of a particle: the lower tiles over n_rows tile rows (fused), or
+// all nt^2 tiles.
+__host__ __device__ inline int tile_count(bool fused, int n) {
+  return fused ? n * (n + 1) / 2 : n * n;
+}
+
+// Term k of a compact index adds into thread `tid`'s column.
+struct ThreadAcc {
+  double* a;
+  int T, tid;
+  __device__ __forceinline__ void operator()(int idx, double term) const {
+    a[idx * T + tid] += term;
+  }
+};
 
 // K^-1[i, j] = sum_{r >= 32 ti} V[r, i] V[r, j] for the Q rows i = 32 ti +
 // ty + (32 / Q) q of thread (ty, tx) and column j = 32 tj + tx, into
@@ -130,155 +211,270 @@ __device__ void kinv_tile(const float* __restrict__ vp, int N, int ti,
   for (int q = 0; q < Q; ++q) kinv_t[(ty + RY * q) * kTile + tx] = acc[q];
 }
 
-// Threads of a block are (32 columns) x RY rows; the thread count T and
-// the warp count come from blockDim. FUSED: `kmat` is the lower-only K^-1
-// (with LINV: V = L^-1) and the grid's x runs over the lower tiles;
-// otherwise `kmat` is the cotangent itself and x runs over all (N / 32
-// rounded up)^2 tiles.
+// Grid (chunks, P), block (32, 8). FUSED: `kmat` is the lower-only K^-1
+// (with LINV: V = L^-1) and the tiles are the active lower ones; otherwise
+// `kmat` is the cotangent itself and the tiles are all (N / 32 rounded
+// up)^2.
 template <bool FUSED, bool LINV>
-__global__ void cov_tape_bwd_kernel(
+__global__ void
+__launch_bounds__(kThreads, LINV ? kMinBlocks - 1 : kMinBlocks)
+cov_tape_bwd_kernel(
     const int* __restrict__ tslot, const int* __restrict__ ttype,
     const int* __restrict__ tlpos, const int* __restrict__ trpos,
     const int* __restrict__ tlen, const float* __restrict__ params,
     const float* __restrict__ ts, const float* __restrict__ mask,
     const float* __restrict__ kmat, const float* __restrict__ beta,
     const float* __restrict__ gscale, double* __restrict__ partial, int M,
-    int N, int masked) {
+    int N, int masked, int budget) {
   extern __shared__ double smem_d[];
-  const int T = blockDim.x * blockDim.y;
-  const int nwarps = T / 32;
   const int n_acc = 3 * M + 1;
-  double* wacc = smem_d;                                  // [nwarps][n_acc]
-  double* adj = wacc + nwarps * n_acc;                    // [M][T]
-  float* val = reinterpret_cast<float*>(adj + M * T);     // [M][T]
-  float* s_par = reinterpret_cast<float*>(                // [3M]
-      reinterpret_cast<char*>(adj) + stack_bytes(M, T, LINV));
-  int* s_slot = reinterpret_cast<int*>(s_par + 3 * M);    // [M] each
-  int* s_type = s_slot + M;
+  const int nt = (N + kTile - 1) / kTile;
+  double* region = smem_d;                                // budget bytes
+  double* wsum = smem_d + budget / 8;                     // [kWarps][2M + 2]
+  float* s_par = reinterpret_cast<float*>(wsum + kWarps * (2 * M + 2));
+  float* kinv_t = s_par + 3 * M;                          // LINV: [32][32]
+  int* s_slot = reinterpret_cast<int*>(kinv_t + (LINV ? kTile * kTile : 0));
+  int* s_type = s_slot + M;                               // [M] each
   int* s_l = s_type + M;
   int* s_r = s_l + M;
-  float* kinv_t = reinterpret_cast<float*>(s_r + M);      // LINV: [32][32]
+  int* s_off = s_r + M;
+  int* s_cof = s_off + M;                                 // [3M + 1]
+  int* s_rows = s_cof + n_acc;                            // [nt]
+  int* s_misc = s_rows + nt;                  // terms, rows, particle
+  int* s_len = s_misc + 3;                                // [P]
 
-  const int p = blockIdx.y;
-  const int lin = blockIdx.x;
-  int ti, tj;
-  if (FUSED) {
-    // Lower tile (ti, tj <= ti) of linear index lin = ti (ti + 1) / 2 + tj.
-    ti = (int)((sqrtf(8.0f * (float)lin + 1.0f) - 1.0f) * 0.5f);
-    while ((ti + 1) * (ti + 2) / 2 <= lin) ++ti;
-    while (ti * (ti + 1) / 2 > lin) --ti;
-    tj = lin - ti * (ti + 1) / 2;
-  } else {
-    const int nt = (N + kTile - 1) / kTile;
-    ti = lin / nt;
-    tj = lin - ti * nt;
-  }
-
+  const int P = gridDim.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 32 + tx;
+  const int tid = ty * kTile + tx;
   const int warp = tid / 32, lane = tid % 32;
-  for (int k = tid; k < M; k += T) {
+
+  // This block's particle: the one of rank blockIdx.y in the order of
+  // decreasing tape length (ties by index), so that the blocks of the
+  // longest tapes start first and the short ones fill in behind them.
+  for (int q = tid; q < P; q += kThreads) s_len[q] = tlen[q];
+  __syncthreads();
+  for (int q = tid; q < P; q += kThreads) {
+    const int lq = s_len[q];
+    int rank = 0;
+    for (int r = 0; r < P; ++r)
+      rank += (s_len[r] > lq) || (s_len[r] == lq && r < q);
+    if (rank == (int)blockIdx.y) s_misc[2] = q;
+  }
+  __syncthreads();
+  const int p = s_misc[2];
+  const int len = s_len[p];
+
+  // Staging: the tape, the parameters, and (fused) which tile rows hold an
+  // active point.
+  for (int k = tid; k < M; k += kThreads) {
     s_slot[k] = tslot[(long long)p * M + k];
     s_type[k] = ttype[(long long)p * M + k];
     s_l[k] = tlpos[(long long)p * M + k];
     s_r[k] = trpos[(long long)p * M + k];
   }
-  for (int k = tid; k < 3 * M; k += T)
+  for (int k = tid; k < 3 * M; k += kThreads)
     s_par[k] = params[(long long)p * 3 * M + k];
-  for (int k = tid; k < nwarps * n_acc; k += T) wacc[k] = 0.0;
-  __syncthreads();
-
-  const int len = tlen[p];
-  const float* kp = kmat + (long long)p * N * N;
-  const bool diag_tile = (ti == tj);
-  // The fused entry takes N a multiple of the tile, so the clamps bind in
-  // the unfused entry only.
-  const int j_raw = tj * kTile + tx;
-  const int j = FUSED ? j_raw : min(j_raw, N - 1);
-  const float t2 = ts[j];
-  const float mj = mask[j];
-  const WarpAcc acc{wacc + warp * n_acc, lane};
-
-  if (LINV) {
-    float* sa = reinterpret_cast<float*>(adj);   // staging, before sweeps
-    float* sb = sa + kTile * kTile;
-    switch (blockDim.y) {
-      case 8: kinv_tile<4>(kp, N, ti, tj, sa, sb, kinv_t); break;
-      case 4: kinv_tile<8>(kp, N, ti, tj, sa, sb, kinv_t); break;
-      case 2: kinv_tile<16>(kp, N, ti, tj, sa, sb, kinv_t); break;
-      default: kinv_tile<32>(kp, N, ti, tj, sa, sb, kinv_t); break;
+  for (int k = tid; k < n_acc; k += kThreads) s_cof[k] = -1;
+  if (FUSED) {
+    for (int r = warp; r < nt; r += kWarps) {
+      const unsigned act =
+          __ballot_sync(0xffffffffu, mask[r * kTile + lane] != 0.0f);
+      if (lane == 0) s_rows[r] = (act != 0u);
     }
   }
-
-  for (int rr = ty; rr < kTile; rr += blockDim.y) {
-    const int i_raw = ti * kTile + rr;
-    const int i = FUSED ? i_raw : min(i_raw, N - 1);
-    const Elem e(ts[i], t2);
-
-    // Cotangent of this element, in the reference's operation order.
-    double kb;
+  __syncthreads();
+  constexpr unsigned kAll = 0xffffffffu;
+  if (warp == 0) {
+    // Compact term offsets, in tape order: an exclusive scan of the terms
+    // per position, 32 positions at a time. The noise's term is the last.
+    int base = 0;
+    for (int q0 = 0; q0 < len; q0 += 32) {
+      const int q = q0 + lane;
+      const int c = q < len ? terms_of(s_type[q]) : 0;
+      int x = c;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, x, o);
+        if (lane >= o) x += y;
+      }
+      if (q < len) s_off[q] = base + x - c;
+      base += __shfl_sync(kAll, x, 31);
+    }
+    if (lane == 0) s_misc[0] = base + 1;
+  } else if (warp == 1) {
+    // The active tile rows, in order (in place: a row is read before any
+    // lane writes at or below it).
+    int a = 0;
     if (FUSED) {
-      const double g = gscale[p];
-      const float* bp = beta + (long long)p * N;
-      const double kij =
-          (i >= j) ? (LINV ? kinv_t[rr * kTile + tx] : kp[(long long)i * N + j])
-                   : 0.0f;
-      kb = (0.5 * g) * ((double)bp[i] * (double)bp[j] - kij);
-      kb = kb * (double)(mask[i] * mj);
-      const double w = (i > j) ? 2.0 : ((i == j) ? 1.0 : 0.0);
-      kb = kb * w;
-    } else {
-      kb = (i_raw < N && j_raw < N) ? (double)kp[(long long)i * N + j] : 0.0;
-      if (masked) kb = kb * (double)(mask[i] * mj);
-    }
-    if (diag_tile) acc(n_acc - 1, (i_raw == j_raw) ? kb : 0.0);
-
-    // Forward sweep: the value of every tape position.
-    for (int q = 0; q < len; ++q) {
-      const float* pr = s_par + 3 * s_slot[q];
-      const int t = s_type[q];
-      val[q * T + tid] =
-          is_op(t) ? ref_op_value(t, pr, val[s_l[q] * T + tid],
-                                  val[s_r[q] * T + tid], e)
-                   : ref_leaf_value(t, pr, e);
-    }
-
-    // Reverse sweep: adjoints, and the gradient terms.
-    if (len > 0) adj[(len - 1) * T + tid] = kb;
-    for (int k = 0; k < len; ++k) {
-      const int q = len - 1 - k;
-      const int s = s_slot[q];
-      const int t = s_type[q];
-      const float* pr = s_par + 3 * s;
-      const double a = adj[q * T + tid];
-      if (is_op(t)) {
-        double al, ar;
-        ref_op_adjoint(t, pr, val[s_l[q] * T + tid], val[s_r[q] * T + tid], a,
-                       e, 3 * s, al, ar, acc);
-        adj[s_l[q] * T + tid] = al;
-        adj[s_r[q] * T + tid] = ar;
-      } else {
-        ref_leaf_grad(t, pr, val[q * T + tid], a, e, 3 * s, acc);
+      for (int r0 = 0; r0 < nt; r0 += 32) {
+        const int r = r0 + lane;
+        const bool f = r < nt && s_rows[r] != 0;
+        const unsigned b = __ballot_sync(kAll, f);
+        if (f) s_rows[a + __popc(b & ((1u << lane) - 1u))] = r;
+        a += __popc(b);
       }
     }
+    if (lane == 0) s_misc[1] = a;
   }
   __syncthreads();
+  const int n_terms = s_misc[0];
+  for (int q = tid; q < len; q += kThreads) {
+    const int c = terms_of(s_type[q]);
+    for (int k = 0; k < c; ++k) s_cof[3 * s_slot[q] + k] = s_off[q] + k;
+  }
+  if (tid == 0) s_cof[n_acc - 1] = n_terms - 1;
+  const int T = bwd_threads(len, n_terms, LINV, budget);
+  double* acc_d = region;                                 // [n_terms][T]
+  double* adj = acc_d + n_terms * T;                      // [len][T]
+  float* val = reinterpret_cast<float*>(adj + len * T);   // [len][T]
+  if (tid < T)
+    for (int c = 0; c < n_terms; ++c) acc_d[c * T + tid] = 0.0;
+  const ThreadAcc acc{acc_d, T, tid};
 
-  // Warps in order into this tile's partial.
-  double* out = partial + ((long long)p * gridDim.x + lin) * n_acc;
-  for (int k = tid; k < n_acc; k += T) {
+  // This block's run of tiles.
+  const int n_tiles = tile_count(FUSED, FUSED ? s_misc[1] : nt);
+  const int per = (n_tiles + gridDim.x - 1) / gridDim.x;
+  const int k0 = blockIdx.x * per;
+  const int k1 = min(k0 + per, n_tiles);
+  const float* kp = kmat + (long long)p * N * N;
+  const double g = FUSED ? (double)gscale[p] : 0.0;
+  const float* bp = FUSED ? beta + (long long)p * N : nullptr;
+  // split: staged
+  for (int k = k0; k < k1; ++k) {
+    int ti, tj;
+    if (FUSED) {
+      // Active lower tile k = a (a + 1) / 2 + b of the active rows.
+      int a = (int)((sqrtf(8.0f * (float)k + 1.0f) - 1.0f) * 0.5f);
+      while ((a + 1) * (a + 2) / 2 <= k) ++a;
+      while (a * (a + 1) / 2 > k) --a;
+      ti = s_rows[a];
+      tj = s_rows[k - a * (a + 1) / 2];
+    } else {
+      ti = k / nt;
+      tj = k - ti * nt;
+    }
+    if (LINV) {
+      float* sa = reinterpret_cast<float*>(adj);  // staging, before sweeps
+      __syncthreads();
+      kinv_tile<kTile / (kThreads / kTile)>(kp, N, ti, tj, sa,
+                                            sa + kTile * kTile, kinv_t);
+      __syncthreads();
+    }
+    if (tid >= T) continue;
+    // The thread's elements e = tid + n T of the tile; the K^-1 (or
+    // cotangent) value of the next one is loaded before this one's sweeps.
+    // The fused entries take N a multiple of the tile, so the clamps bind
+    // in the unfused entry only.
+    auto kmat_at = [&](int e_) {
+      const int i = min(ti * kTile + e_ / kTile, N - 1);
+      const int j = min(tj * kTile + e_ % kTile, N - 1);
+      return kp[(long long)i * N + j];
+    };
+    float kv_next = LINV ? 0.0f : kmat_at(tid);
+    for (int e_ = tid; e_ < kTile * kTile; e_ += T) {
+      const float kv = kv_next;
+      if (!LINV && e_ + T < kTile * kTile) kv_next = kmat_at(e_ + T);
+      const int rr = e_ / kTile, cc = e_ % kTile;
+      const int i_raw = ti * kTile + rr, j_raw = tj * kTile + cc;
+      const int i = FUSED ? i_raw : min(i_raw, N - 1);
+      const int j = FUSED ? j_raw : min(j_raw, N - 1);
+
+      // Cotangent of this element, in the reference's operation order.
+      double kb;
+      if (FUSED) {
+        const float mm = mask[i] * mask[j];
+        if (i < j || mm == 0.0f) continue;  // cotangent 0: nothing to add
+        const double kij =
+            LINV ? (double)kinv_t[rr * kTile + cc] : (double)kv;
+        kb = (0.5 * g) * ((double)bp[i] * (double)bp[j] - kij);
+        kb = kb * (double)mm;
+        const double w = (i > j) ? 2.0 : 1.0;
+        kb = kb * w;
+      } else {
+        kb = (i_raw < N && j_raw < N) ? (double)kv : 0.0;
+        if (masked) kb = kb * (double)(mask[i] * mask[j]);
+      }
+      if (i_raw == j_raw) acc(n_terms - 1, kb);
+      const Elem e(ts[i], ts[j]);
+      // split: cotangent
+
+      // Forward sweep: the value of every tape position.
+      for (int q = 0; q < len; ++q) {
+        const float* pr = s_par + 3 * s_slot[q];
+        const int t = s_type[q];
+        val[q * T + tid] =
+            is_op(t) ? ref_op_value(t, pr, val[s_l[q] * T + tid],
+                                    val[s_r[q] * T + tid], e)
+                     : ref_leaf_value(t, pr, e);
+      }
+      // split: forward
+
+      // Reverse sweep: adjoints, and the gradient terms.
+      if (len > 0) adj[(len - 1) * T + tid] = kb;
+      for (int q = len - 1; q >= 0; --q) {
+        const int t = s_type[q];
+        const float* pr = s_par + 3 * s_slot[q];
+        const double a = adj[q * T + tid];
+        if (is_op(t)) {
+          double al, ar;
+          ref_op_adjoint(t, pr, val[s_l[q] * T + tid], val[s_r[q] * T + tid],
+                         a, e, s_off[q], al, ar, acc);
+          adj[s_l[q] * T + tid] = al;
+          adj[s_r[q] * T + tid] = ar;
+        } else {
+          ref_leaf_grad(t, pr, val[q * T + tid], a, e, s_off[q], acc);
+        }
+      }
+      // split: reverse
+    }
+  }
+  __syncthreads();
+  // split: barrier
+
+  // Each warp sums its lanes term by term, then the warps in order into
+  // this block's partial, at the terms' slot indices (0 elsewhere).
+  for (int c = 0; c < n_terms; ++c) {
+    const double v = warp_sum(tid < T ? acc_d[c * T + tid] : 0.0);
+    if (lane == 0) wsum[warp * (2 * M + 2) + c] = v;
+  }
+  __syncthreads();
+  double* out = partial + ((long long)p * gridDim.x + blockIdx.x) * n_acc;
+  for (int k = tid; k < n_acc; k += kThreads) {
+    const int c = s_cof[k];
     double s = 0.0;
-    for (int w = 0; w < nwarps; ++w) s += wacc[w * n_acc + k];
+    if (c >= 0)
+      for (int w = 0; w < kWarps; ++w) s += wsum[w * (2 * M + 2) + c];
     out[k] = s;
   }
+  // split: partials
 }
 
-// Shared memory of one block with RY thread rows, in bytes.
-int bwd_smem_bytes(int M, int ry, bool linv) {
-  const int T = 32 * ry;
-  const int n_acc = 3 * M + 1;
-  return (ry * n_acc) * 8 + stack_bytes(M, T, linv) + 3 * M * 4 + 4 * M * 4 +
-         (linv ? kTile * kTile * 4 : 0);
+// Dynamic shared memory of one block besides the accumulators and
+// stacks, in bytes.
+int bwd_table_bytes(int M, int nt, int P, bool linv) {
+  return 8 * kWarps * (2 * M + 2) + 4 * 3 * M +
+         (linv ? 4 * kTile * kTile : 0) +
+         4 * (5 * M + 3 * M + 1 + nt + 3 + P);
+}
+
+// Bytes for the accumulators and stacks: kBudget, or more when the grid is
+// too small to fill the card at that size -- the share of an SM that lets
+// the whole grid run at once, so that a long tape keeps its threads when
+// only a few blocks run (one tile per particle at N <= 32).
+int bwd_budget(int blocks, int tables) {
+  int dev = 0, sms = 1, per_sm = 0, per_block = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_block,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return kBudget;
+  const int resident = (blocks + sms - 1) / sms;   // blocks per SM, one wave
+  const int fit = min(per_sm / resident - 1024, per_block) - tables;
+  return max(kBudget, fit / 8 * 8);
 }
 
 template <bool FUSED, bool LINV>
@@ -286,24 +482,28 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
            const void* trpos, const void* tlen, const void* params,
            const void* ts, const void* mask, const void* kmat,
            const void* beta, const void* g, void* partial, void* out, int P,
-           int M, int N, int masked, int n_tiles, void* stream) {
-  const int ry = bwd_thread_rows(M);
-  const int smem = bwd_smem_bytes(M, ry, LINV);
+           int M, int N, int masked, void* stream) {
+  const int nt = (N + kTile - 1) / kTile;
+  const int chunks = bwd_chunks(P, tile_count(FUSED, nt));
+  const int tables = bwd_table_bytes(M, nt, P, LINV);
+  const int budget = bwd_budget(chunks * P, tables);
+  const int smem = budget + tables;
   cudaError_t err = cudaFuncSetAttribute(
       cov_tape_bwd_kernel<FUSED, LINV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   auto s = (cudaStream_t)stream;
   cov_tape_bwd_kernel<FUSED, LINV>
-      <<<dim3(n_tiles, P), dim3(32, ry), smem, s>>>(
+      <<<dim3(chunks, P), dim3(kTile, kThreads / kTile), smem, s>>>(
       (const int*)tslot, (const int*)ttype, (const int*)tlpos,
       (const int*)trpos, (const int*)tlen, (const float*)params,
       (const float*)ts, (const float*)mask, (const float*)kmat,
-      (const float*)beta, (const float*)g, (double*)partial, M, N, masked);
+      (const float*)beta, (const float*)g, (double*)partial, M, N, masked,
+      budget);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_tiles_kernel<<<P, 128, 0, s>>>((const double*)partial, (float*)out,
-                                        n_tiles, 3 * M + 1);
+                                        chunks, 3 * M + 1);
   return (int)cudaGetLastError();
 }
 
@@ -311,8 +511,9 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
 
 // Tapes [P, M] int32 (slot, type, lpos, rpos) and lengths [P]; params
 // [P, M, 3], ts and mask [N], kinv [P, N, N] lower-only, beta [P, N],
-// g [P], all float32; partial scratch [P, n_lower_tiles, 3M + 1] float64;
-// out [P, 3M + 1] float32. N must be a multiple of 32.
+// g [P], all float32; partial scratch [P, chunks, 3M + 1] float64, chunks =
+// min(n(n + 1) / 2, max(1, 8448 / P)) for n = N / 32 (ops/cov_vjp.py
+// bwd_chunks); out [P, 3M + 1] float32. N must be a multiple of 32.
 extern "C" int autogp_cov_tape_bwd(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
@@ -320,10 +521,9 @@ extern "C" int autogp_cov_tape_bwd(
     void* partial, void* out, int P, int M, int N, void* stream) {
   if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1)
     return (int)cudaErrorInvalidValue;
-  const int nt = N / kTile;
   return launch<true, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                              mask, kinv, beta, g, partial, out, P, M, N, 1,
-                             nt * (nt + 1) / 2, stream);
+                             stream);
 }
 
 // The arguments of autogp_cov_tape_bwd, with V = L^-1 [P, N, N] (exact
@@ -335,16 +535,16 @@ extern "C" int autogp_cov_tape_bwd_linv(
     void* partial, void* out, int P, int M, int N, void* stream) {
   if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1)
     return (int)cudaErrorInvalidValue;
-  const int nt = N / kTile;
   return launch<true, true>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                             mask, linv, beta, g, partial, out, P, M, N, 1,
-                            nt * (nt + 1) / 2, stream);
+                            stream);
 }
 
 // The same tapes, params, ts and mask; kbar [P, N, N] float32, the
 // cotangent of the assembled matrix, multiplied by mask_i mask_j when
-// `masked`; partial scratch [P, ceil(N / 32)^2, 3M + 1] float64; out
-// [P, 3M + 1] float32. Any N >= 1.
+// `masked`; partial scratch [P, chunks, 3M + 1] float64, chunks =
+// min(n^2, max(1, 8448 / P)) for n = ceil(N / 32); out [P, 3M + 1]
+// float32. Any N >= 1.
 extern "C" int autogp_cov_tape_bwd_unfused(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
@@ -352,8 +552,7 @@ extern "C" int autogp_cov_tape_bwd_unfused(
     int M, int N, int masked, void* stream) {
   if (M < 1 || M > kMaxSlots || N < 1 || P < 1)
     return (int)cudaErrorInvalidValue;
-  const int nt = (N + kTile - 1) / kTile;
   return launch<false, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                               mask, kbar, nullptr, nullptr, partial, out, P,
-                              M, N, masked, nt * nt, stream);
+                              M, N, masked, stream);
 }

@@ -61,10 +61,75 @@ slot_launches = 0
 
 TILE = 32   # csrc/cov_tape_bwd.cu kTile
 
+# The tape backward's block geometry (csrc/cov_tape_bwd.cu kThreads,
+# kBudget, kTargetBlocks, kStaging): the partial scratch is sized here by
+# `bwd_chunks`, and the tests hold `bwd_threads` and `tile_runs` to what
+# the kernel must do.
+BWD_THREADS = 256
+BWD_BUDGET = 48 * 1024
+BWD_TARGET_BLOCKS = 8448
+BWD_STAGING = 2 * TILE * TILE * 4
+
+# Gradient terms of a tape instruction, by node type (config.py codes 1-9):
+# the acc(base + k) calls of the kernel's ref_leaf_grad / ref_op_adjoint.
+TERMS_OF_TYPE = (0, 1, 3, 2, 3, 3, 0, 0, 1, 1)
+
 # LmlTapeFused's backward backend: False = K^-1 by the kinv kernel, then
 # kernel 5; True = L^-1 by the kinv kernel, then kernel 5's in-tape mode.
 # A/B: autogp_tpu_torch/scripts/bench_grad_ab.py.
 INTAPE_LINV = False
+
+
+def bwd_chunks(P: int, N: int, fused: bool) -> int:
+    """Blocks per particle of the tape backward: min(tiles, max(1,
+    BWD_TARGET_BLOCKS // P)), tiles = the lower tiles (fused entries) or
+    all tiles of the ceil(N / 32)-tile grid."""
+    nt = -(-N // TILE)
+    tiles = nt * (nt + 1) // 2 if fused else nt * nt
+    return min(tiles, max(1, BWD_TARGET_BLOCKS // P))
+
+
+def bwd_threads(length: int, n_terms: int, linv: bool,
+                budget: int = BWD_BUDGET) -> int:
+    """Threads a block of the tape backward runs for a tape of `length`
+    positions and `n_terms` gradient terms (the noise's included): the
+    most, up to BWD_THREADS and a multiple of 32 from 32 up, whose double
+    accumulators (8 n_terms bytes each) and value and adjoint stacks (12
+    bytes per position each, or the in-tape entry's staging strips if
+    larger) fit `budget` bytes (BWD_BUDGET when the grid fills the card;
+    the kernel grows it for a smaller grid)."""
+    t = budget // (12 * length + 8 * n_terms)
+    if linv:
+        t = min(t, (budget - BWD_STAGING) // (8 * n_terms))
+    t = min(t, BWD_THREADS)
+    return t // 32 * 32 if t >= 32 else max(t, 1)
+
+
+def tape_terms(tape_type, length):
+    """Gradient terms of each tape [P], the noise's included."""
+    per = torch.as_tensor(TERMS_OF_TYPE, device=tape_type.device)
+    valid = (torch.arange(tape_type.shape[1], device=tape_type.device)[None]
+             < length[:, None])
+    return (per[tape_type.long()] * valid).sum(1) + 1
+
+
+def tile_runs(mask, P: int, fused: bool):
+    """The tiles each block of a particle visits, as the kernel walks them:
+    a list of bwd_chunks(P, N, fused) lists of (ti, tj). Fused: the lower
+    tiles whose 32 rows and 32 columns each hold a point with mask != 0,
+    row by row; otherwise every tile, row by row. Block c takes the c-th
+    run of ceil(tiles / chunks) of them."""
+    N = mask.shape[0]
+    nt = -(-N // TILE)
+    if fused:
+        rows = [r for r in range(nt)
+                if bool((mask[r * TILE:(r + 1) * TILE] != 0).any())]
+        tiles = [(a, b) for i, a in enumerate(rows) for b in rows[:i + 1]]
+    else:
+        tiles = [(a, b) for a in range(nt) for b in range(nt)]
+    chunks = bwd_chunks(P, N, fused)
+    per = -(-len(tiles) // chunks)
+    return [tiles[c * per:(c + 1) * per] for c in range(chunks)]
 
 
 def cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower, beta, g,
@@ -142,9 +207,8 @@ def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
         raise ValueError("cov_tape_bwd: shapes do not match [P, M] trees "
                          "on N points")
     n_acc = 3 * M + 1
-    nt = N // TILE
     dev = params_t.device
-    partial = torch.empty((P, nt * (nt + 1) // 2, n_acc),
+    partial = torch.empty((P, bwd_chunks(P, N, True), n_acc),
                           dtype=torch.float64, device=dev)
     out = torch.empty((P, n_acc), dtype=f32, device=dev)
     lib = _build.library()
@@ -222,8 +286,8 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
     n_acc = 3 * M + 1
     nt = -(-N // TILE)
     dev = params_t.device
-    partial = torch.empty((P, nt * nt, n_acc), dtype=torch.float64,
-                          device=dev)
+    partial = torch.empty((P, bwd_chunks(P, N, False) if tape else nt * nt,
+                           n_acc), dtype=torch.float64, device=dev)
     out = torch.empty((P, n_acc), dtype=f32, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream

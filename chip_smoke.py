@@ -31,7 +31,8 @@ back to the CPU):
      K^-1 and beta from the kinv kernel on phase 5's prior-tree factor,
      g = 1: against its plain version in f64 on the same inputs, per
      particle max|err| / max|ref| <= 1e-3 for the parameter and the noise
-     gradients; two runs bitwise equal;
+     gradients; two runs bitwise equal; timed there and at the config-4
+     fit's shapes (N = 256, 512 and 1024 with 256 to 1024 points active);
   7. grad -- LmlTapeFused on the 64 prior particles at N = 1024: the value
      under grad torch.equal to the value-only LML; the z-space gradient
      against float64 autograd through the plain dense path, normwise
@@ -57,14 +58,15 @@ back to the CPU):
      (b) kernel 5's in-tape entry on phase 3's trees, V and beta from
      linv_beta of phase 6's factor, g = 1: against its plain version in f64
      on the same inputs, per particle <= 1e-3, two runs bitwise equal, and
-     against kernel 5 on kinv_beta_strips of the same factor (reported);
+     bitwise kernel 5 on kinv_beta_strips of the same factor;
      (c) LmlTapeFused with INTAPE_LINV on the 64 prior particles at N=1024:
      value torch.equal to the value path, z-space gradient against phase
      7's float64 reference, gate 1e-2 on grams of condition < 1e5; (d) the
      config-4 fit of phase 8 (same seed) with INTAPE_LINV: linv_beta and
      cov_tape_bwd_linv launch equally often, kinv_beta_strips and kernel 5
-     never, linv_stats_wd does; finiteness, validate_particles and the
-     top-8 check against float64 on the CPU; (e) the A/B of both backends
+     never, linv_stats_wd does; the final LMLs torch.equal to phase 8's;
+     finiteness, validate_particles and the top-8 check against float64 on
+     the CPU; (e) the A/B of both backends
      (autogp_tpu_torch.scripts.bench_grad_ab) at [64, 1024, 1024], values
      equal. INTAPE_LINV is False again afterwards;
   9. kernel 6 (per-slot assembly) at [64, 1024, 1024] on the phase-3
@@ -591,6 +593,23 @@ def main():
     plain_bwd(f32, 8, Ki_c, beta_c)
     torch.cuda.synchronize()
     bw_plain_ms = (time.perf_counter() - t0) * 1e3
+    # The fit's own shapes: its buckets and active points (config 4).
+    bw_fit = {}
+    for N, a in ((256, 256), (512, 512), (1024, 256), (1024, 512),
+                 (1024, 768), (1024, 1024)):
+        tsn, mkn = grid(N, a)
+        Kn = cov.cov_tape(nt, pt, noise, tsn, tsn, mkn, mkn, D, True, True)
+        _, an, wdn, Ln = chol.chol_solve_strips(
+            Kn, (xs_main[:N] * mkn).expand(P_MAIN, -1))
+        Kin, bn, _ = kinv.kinv_beta_strips(an, wdn, Ln)
+        del Kn, Ln, wdn
+
+        def run_fit_bwd():
+            return cov_vjp.cov_tape_bwd(nt, pt, tsn, mkn, Kin, bn, g1, D)
+        bw_fit[(N, a)] = (cuda_ms(torch, run_fit_bwd, 5), device_ms(
+            torch, run_fit_bwd, ("cov_tape_bwd_kernel",
+                                 "reduce_tiles_kernel"), 3))
+        del Kin
     # Needed work: forward and backward tape plus the cotangent (6 flops)
     # on every active lower element; read K^-1 on the active lower
     # triangle and the active beta once (padded elements are masked out).
@@ -606,7 +625,10 @@ def main():
           f"1e-3), max abs pbar err {bwd_abs:.3e}; two runs bitwise equal;"
           f" ms (wrapper, kernels alone, plain f32 in chunks of 8) "
           f"({bw_ms:.4f}, {bw_dev_ms:.4f}, {bw_plain_ms:.4f}), bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); ms (wrapper, kernels "
+          f"alone) at the fit's [64, N, N] with n points active by (N, n): "
+          + ", ".join(f"({N}, {a}): ({w:.4f}, {k:.4f})"
+                      for (N, a), (w, k) in bw_fit.items()))
     del Ki_c, pr
 
     # ---- 7. grad: LmlTapeFused and the K0 noise gradient ----------------
@@ -904,6 +926,9 @@ def main():
               float(((nl.double() - nb).abs() / nb.double().abs())[ok_l]
                     .max()))
     eq5 = torch.equal(pl, pb) and torch.equal(nl, nb)
+    if not eq5:
+        fail(f"kernel 5c is not bitwise kernel 5 on the same factor "
+             f"(max rel {vs5:.3e})")
 
     def run_linv():
         return cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V_c, beta_vc, g1,
@@ -933,8 +958,8 @@ def main():
         f"({int(ok_l.sum())} particles): worst pbar {float(e_pl.max()):.3e} "
         f"(median {float(e_pl.median()):.3e}), nbar {float(e_nl.max()):.3e} "
         f"(gate 1e-3), max abs pbar err {lt_abs:.3e}; two runs bitwise "
-        f"equal; vs kernel 5 on kinv_beta_strips of the same factor "
-        f"{vs5:.3e} (bitwise equal: {eq5}); ms (wrapper, kernels alone, "
+        f"equal; bitwise kernel 5 on kinv_beta_strips of the same factor; "
+        f"ms (wrapper, kernels alone, "
         f"plain f32 in chunks of 8) ({lt_ms:.4f}, {lt_dev_ms:.4f}, "
         f"{lt_plain_ms:.4f}), bound {linv_bwd_bound[0]:.4f} ms "
         f"({linv_bwd_bound[1]})")
@@ -993,6 +1018,8 @@ def main():
     finally:
         cov_vjp.INTAPE_LINV = False
     fit_ms_i, pred_ms_i = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    if not torch.equal(model.particles.lml, lml8):
+        fail("intape fit: final LMLs are not torch.equal to phase 8's")
     li = launches_i
     if not (li["linv_beta"] > 0 and li["linv_beta"] == li["cov_tape_bwd_linv"]
             and li["kinv_beta_strips"] == 0 and li["cov_tape_bwd"] == 0
@@ -1023,8 +1050,7 @@ def main():
         f"{fit_ms8:.1f} ms), predict {pred_ms_i:.1f} ms; launches {li}; per "
         f"round (step, MH accepted, HMC sweeps, HMC parameter accepts) "
         f"{round_line(model.round_stats)} (phase 8: {round_line(rs8)}); "
-        f"final LMLs torch.equal to phase 8's: "
-        f"{torch.equal(p.lml, lml8)}; top-8 vs f64 CPU: LML rel "
+        f"final LMLs torch.equal to phase 8's; top-8 vs f64 CPU: LML rel "
         f"{lml_rel_i:.3e}, predict err / y-range {pred_err_i:.3e}; "
         f"validate_particles ok")
     launches_intape = li

@@ -404,3 +404,173 @@ def test_cov_tape_bwd_linv_kernel_matches_plain(cuda, N):
     assert int(fin.sum()) >= 8
     assert float(((g1 - g0).abs().amax(1)
                   / g0.abs().amax(1))[fin].max()) <= 1e-3
+
+
+LEAF_CYCLE = (C.CONSTANT, C.LINEAR, C.SQUARED_EXPONENTIAL,
+              C.GAMMA_EXPONENTIAL, C.PERIODIC, C.WHITE_NOISE)
+OP_CYCLE = (C.PLUS, C.TIMES, C.CHANGEPOINT)
+
+
+def _mixed_heaps(depth_cap, n_leaves):
+    """[len(n_leaves), 2^D - 1] heaps: tree p expands leaves breadth-first
+    until it has n_leaves[p] (a tape of 2 n - 1 positions), operators and
+    leaves cycling through every type."""
+    M = (1 << depth_cap) - 1
+    nt = torch.zeros(len(n_leaves), M, dtype=torch.int64)
+    for p, n in enumerate(n_leaves):
+        leaves, ops = [0], []
+        while len(leaves) < n:
+            s = leaves.pop(0)
+            ops.append(s)
+            leaves += [2 * s + 1, 2 * s + 2]
+        for k, s in enumerate(ops):
+            nt[p, s] = OP_CYCLE[(k + p) % 3]
+        for k, s in enumerate(sorted(leaves)):
+            nt[p, s] = LEAF_CYCLE[(k + p) % 6]
+    return nt
+
+
+def _mixed(dev, N, n_act, seed):
+    """16 trees with tapes of 1, 3, ..., 31 positions (the full depth-5
+    heap last), their transformed parameters and noise, sorted times and
+    the first n_act points active."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = C.GPConfig()
+    tab = TM.prior_tables(cfg, dev, torch.float32)
+    nt = _mixed_heaps(cfg.depth_cap, range(1, 17)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pz = 0.5 * torch.randn(16, nt.shape[1], 3, generator=gen, device=dev)
+    noise = TM.transform_noise(torch.randn(16, generator=gen, device=dev),
+                               cfg)
+    ts = torch.rand(N, generator=gen, device=dev).sort().values
+    mask = (torch.arange(N, device=dev) < n_act).float()
+    return cfg, nt, TM.transform_params(nt, pz, tab), noise, ts, mask
+
+
+def _rel_or_zero(got, ref):
+    """Per-particle max|got - ref| / max|ref|, 0 where ref is all zero and
+    got is exactly zero there (inf where it is not)."""
+    num = (got.double() - ref).abs().flatten(1).amax(1)
+    den = ref.abs().flatten(1).amax(1)
+    return torch.where(den > 0, num / den.clamp_min(1e-300),
+                       torch.where(num == 0, 0.0, float("inf")))
+
+
+@pytest.mark.parametrize("N", [32, 256, 1024])
+@pytest.mark.parametrize("last_rows", [0, 1, 31, 32])
+def test_tape_bwd_mixed_tapes_match_plain(cuda, N, last_rows):
+    """Kernel 5 and its in-tape entry 5c on 16 trees whose tapes run from
+    1 to 31 positions, with 0, 1, 31 or all 32 rows of the last tile
+    active: against the plain version in float64 on the same float32
+    inputs, per particle <= 1e-3 for the parameter and the noise gradient
+    (exactly 0 where the reference is); two runs bitwise equal; 5c bitwise
+    kernel 5 on the same factor."""
+    n_act = N - 32 + last_rows
+    cfg, nt, pt, noise, ts, mask = _mixed(cuda, N, n_act, seed=N + last_rows)
+    xs = torch.sin(7 * ts) * mask
+    Kc = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, cfg.depth_cap,
+                      True, True)
+    _, a, wd, L = chol.chol_solve_strips(Kc, xs.expand(16, N))
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    V, beta_v, _ = kinv.linv_beta(L, a, wd)
+    g = torch.linspace(-1.0, 2.0, 16, device=cuda)
+    pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g,
+                                  cfg.depth_cap)
+    pb2, nb2 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g,
+                                    cfg.depth_cap)
+    pl, nl = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V, beta_v, g,
+                                       cfg.depth_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(pb, pb2) and torch.equal(nb, nb2)
+    assert torch.equal(pl, pb) and torch.equal(nl, nb)
+    pr, nr = cov_vjp.cov_tape_bwd_plain(
+        nt, pt.double(), ts.double(), mask.double(), Ki.double(),
+        beta.double(), g.double(), cfg.depth_cap)
+    ok = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    assert int(ok.sum()) >= 8
+    assert float(_rel_or_zero(pb, pr)[ok].max()) <= 1e-3
+    assert float(_rel_or_zero(nb[:, None], nr[:, None])[ok].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 200])
+def test_cov_grads_tape_any_n(cuda, N):
+    """Kernel 5b (every tile, weight 1, clamped edge threads) at N below,
+    at and above one tile, on 16 trees with tapes of 1 to 31 positions, a
+    random non-symmetric cotangent and a scattered mask: against the plain
+    version in float64, per particle <= 1e-3 (parameters) and 1e-5
+    (noise); two runs bitwise equal."""
+    cfg, nt, pt, _, ts, _ = _mixed(cuda, N, N, seed=N + 7)
+    mask = _scatter_mask(cuda, N, N + 8)
+    gen = torch.Generator(device=cuda).manual_seed(N + 9)
+    kbar = torch.randn(16, N, N, generator=gen, device=cuda)
+    pb, nb = cov_vjp.cov_grads_tape(nt, pt, kbar, ts, mask, cfg.depth_cap)
+    pb2, nb2 = cov_vjp.cov_grads_tape(nt, pt, kbar, ts, mask, cfg.depth_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(pb, pb2) and torch.equal(nb, nb2)
+    pr, nr = cov_vjp.cov_grads_plain(nt, pt.double(), kbar.double(),
+                                     ts.double(), mask.double(),
+                                     cfg.depth_cap, True)
+    ok = torch.isfinite(pr.flatten(1)).all(1)
+    assert int(ok.sum()) >= 8
+    assert float(_rel_or_zero(pb, pr)[ok].max()) <= 1e-3
+    assert float(((nb.double() - nr).abs()
+                  / nr.abs().clamp_min(1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("depth", [5, 8])
+@pytest.mark.parametrize("N", [1, 33, 200])
+def test_cov_kernel_bitwise_slot_kernel(cuda, depth, N):
+    """Kernel 1's gram (full and lower_only) bitwise kernel 6's at ragged
+    N with a scattered mask, on prior trees and, at depth cap 8, on right
+    combs that fill the eight-deep value stack."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = C.GPConfig(max_depth=depth)
+    tab = TM.prior_tables(cfg, cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(depth * N)
+    nt, pz = TM.sample_tree(gen, 16, tab, torch.float32, cuda)
+    if depth == 8:
+        comb = [0]
+        while len(comb) < 7:
+            comb.append(2 * comb[-1] + 2)
+        for p in range(4):
+            nt[p] = 0
+            for k, s in enumerate(comb):
+                nt[p, s] = OP_CYCLE[(k + p) % 3]
+                nt[p, 2 * s + 1] = LEAF_CYCLE[(k + p) % 6]
+            nt[p, 2 * comb[-1] + 2] = LEAF_CYCLE[p % 6]
+    pt = TM.transform_params(nt, pz, tab)
+    noise = TM.transform_noise(torch.randn(16, generator=gen, device=cuda),
+                               cfg)
+    ts = torch.rand(N, generator=gen, device=cuda).sort().values
+    mask = _scatter_mask(cuda, N, N + depth)
+    K6 = cov.cov_matrix(nt, pt, noise, ts, mask, cfg.depth_cap, masked=True)
+    K1 = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, cfg.depth_cap,
+                      gram=True)
+    K1l = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, cfg.depth_cap,
+                       gram=True, lower_only=True)
+    torch.cuda.synchronize()
+    assert torch.equal(K1, K6)
+    assert torch.equal(K1l, torch.tril(K6))
+
+
+@pytest.mark.parametrize("N1,N2", [(37, 70), (70, 37), (64, 72), (5, 128)])
+def test_cov_kernel_cross_block_bitwise(cuda, N1, N2):
+    """Kernel 1 outside gram mode (the predict cross-covariance, N1 != N2,
+    rows of 4k and of other widths): bitwise the off-diagonal block of
+    kernel 6's gram on the joined time grid, 0 where a mask is 0."""
+    cfg, nt, pt, noise, _, _ = _prior(cuda, 16, 8, seed=N1 + N2)
+    gen = torch.Generator(device=cuda).manual_seed(N1 * N2)
+    t_all = torch.rand(N1 + N2, generator=gen, device=cuda)
+    m_row = _scatter_mask(cuda, N1, N1)
+    m_col = _scatter_mask(cuda, N2, N2 + 1)
+    K6 = cov.cov_matrix(nt, pt, noise, t_all,
+                        torch.ones(N1 + N2, device=cuda), cfg.depth_cap,
+                        masked=False)
+    Kx = cov.cov_tape(nt, pt, noise, t_all[:N1], t_all[N1:], m_row, m_col,
+                      cfg.depth_cap, gram=False)
+    torch.cuda.synchronize()
+    keep = (m_row[:, None] * m_col[None, :]) > 0
+    want = torch.where(keep, K6[:, :N1, N1:], torch.zeros((), device=cuda))
+    assert torch.equal(Kx, want)
