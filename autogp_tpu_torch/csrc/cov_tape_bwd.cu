@@ -34,14 +34,23 @@
 // diagonal, kinv.cu's autogp_linv_beta) in place of K^-1. Before the
 // sweeps of each tile the block forms that tile of K^-1, K^-1[i, j] =
 // sum_{r >= 32 ti} V[r, i] V[r, j] (exact: V[r, i] = 0 for r < i), from
-// the two column strips V[32 ti:, ti-tile] and V[32 ti:, tj-tile] staged
-// through shared memory in K-steps of 32 rows, with IEEE FP32 FMA in
-// ascending r (kinv.cu's kinv_lower_kernel adds the same products in the
-// same order, so the two K^-1 agree bit for bit); the cotangent is then
-// formed as in the fused entry. K^-1 never exists in device memory. The
-// contraction costs 2 * 32^2 * (N - 32 ti) FP32 operations per tile, ~0.39
-// GFLOP per particle at N = 1024, against 4 MB of V per particle read
-// once: this entry is bound by those operations.
+// the two column strips V[32 ti:, ti-tile] and V[32 ti:, tj-tile] on the
+// tensor cores in 3xTF32 (tf32x3.cuh): each warp owns one m16n8 fragment
+// of the tile and adds its products 8 rows at a time, ascending from the
+// fragment's first row, in a partial sum per 32 rows added to an FP32
+// sum, exactly as kinv.cu's kinv_lower_kernel does for the same element
+// (column i as the A operand), so the two K^-1 agree bit for bit; the
+// cotangent is then formed as in the fused entry. K^-1 never exists in
+// device memory. The contraction costs 2 * 32^2 * (N - 32 ti)
+// FP32-class operations per tile (three TF32 products each), ~0.39 GFLOP
+// per particle at N = 1024, and each tile re-reads its two strips (~8
+// flops per byte). The strips pass through shared memory 32 rows at a
+// time, double-buffered by cp.async into rows padded to 40 floats (a
+// fragment load touches 32 banks), in the stack memory the sweeps use
+// afterwards. Each warp's fragment is one chain of dependent mma.sync, so
+// the contraction is bound by their latency and the copies', not by the
+// tensor cores' rate (two tiles per pass, two chains per warp on 16-row
+// slabs, ran 8% slower).
 //
 // The unfused entry reads kbar = Kbar_ij (times m_i m_j when `masked`)
 // from its input instead: no symmetry is assumed, every element of every
@@ -93,8 +102,10 @@
 //   T = min(256, budget / (12 len + 8 terms)) of its 256 threads (a
 //   multiple of 32 from 32 up), so a tape of up to 5 positions uses all
 //   256 within a 48 KB budget and four blocks fit an SM (32 warps, 64
-//   registers; three for the in-tape entry, 80 registers); a long tape
-//   runs on fewer threads of the same block.
+//   registers); the in-tape entry has a budget of 46 KB, of which its
+//   double-buffered staging takes 20 KB, and its four blocks fit an SM
+//   with their 4 KB K^-1 tiles. A long tape runs on fewer threads of the
+//   same block.
 //   When the grid is too small to fill the card (one tile per particle at
 //   N <= 32, the online run's bucket), the budget grows to the share of
 //   an SM that still runs the whole grid at once, so that a long tape
@@ -112,6 +123,7 @@
 // with its own relative rounding.
 
 #include "cov_formulas.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -120,11 +132,15 @@ using namespace autogp;
 constexpr int kThreads = 256;             // blockDim = (32, 8)
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 4;             // blocks per SM the budget allows
-                                          // (3 for the in-tape entry, whose
-                                          // K^-1 tile takes 4 KB more)
 constexpr int kBudget = 48 * 1024;        // accumulators + stacks, bytes,
                                           // when the grid fills the card
-constexpr int kStaging = 2 * kTile * kTile * (int)sizeof(float);
+constexpr int kBudgetLinv = 46 * 1024;    // the same, in-tape entry (its
+                                          // K^-1 tile takes 4 KB more)
+constexpr int kLdV = kTile + 8;           // staged V rows, padded
+constexpr int kVStage = 2 * kTile * kLdV; // floats: a slab of both strips
+constexpr int kVStages = 2;               // the in-tape entry's ring
+// Its staging, and 16 bytes to align it.
+constexpr int kStaging = kVStages * kVStage * (int)sizeof(float) + 16;
 constexpr int kTargetBlocks = 8448;       // 16 x 4 blocks x 132 SMs
 
 // Gradient terms of a tape instruction of type t: the acc(base + k) calls
@@ -179,36 +195,62 @@ struct ThreadAcc {
   }
 };
 
-// K^-1[i, j] = sum_{r >= 32 ti} V[r, i] V[r, j] for the Q rows i = 32 ti +
-// ty + (32 / Q) q of thread (ty, tx) and column j = 32 tj + tx, into
-// kinv_t[i - 32 ti][tx]. V's strips pass through sa and sb, 32 rows at a
-// time; the products are added in ascending r by fmaf.
-template <int Q>
+// K^-1[i, j] = sum_{r >= 32 ti} V[r, i] V[r, j] for the tile (ti, tj), into
+// kinv_t[i - 32 ti][j - 32 tj], on the tensor cores. Warp w (= ty) owns
+// the m16n8 fragment at rows 16 (w / 4), columns 8 (w % 4), and adds the
+// 3xTF32 products of 8 rows at a time with column i as the A operand,
+// ascending from the fragment's first row 32 ti + 16 (w / 4) (the rows
+// above hold zeros of V), each slab's into a partial from +0 then added
+// to the sum: element for element what kinv_lower_kernel adds. V's two
+// column strips pass through `stage` (16-byte aligned, kVStages stages of
+// kVStage floats) 32 rows at a time, one 16-byte cp.async of each strip
+// per thread and slab, the next slab in flight while the current one
+// multiplies, one barrier per slab.
 __device__ void kinv_tile(const float* __restrict__ vp, int N, int ti,
-                          int tj, float* sa, float* sb, float* kinv_t) {
-  constexpr int RY = kTile / Q;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
-  float acc[Q];
+                          int tj, float* stage, float* kinv_t) {
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int wm = threadIdx.y >> 2, wn = threadIdx.y & 3;
+  const int r0 = ti * kTile, nk = (N - r0) / kTile;
+  const int lr = tid >> 3, lc = (tid & 7) * 4;
+  auto load = [&](int s) {
+    float* st = stage + (s % kVStages) * kVStage + lr * kLdV + lc;
+    const float* src = vp + (long long)(r0 + s * kTile + lr) * N + lc;
+    cp_async16(st, src + ti * kTile);
+    cp_async16(st + kTile * kLdV, src + tj * kTile);
+  };
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-  for (int r0 = ti * kTile; r0 < N; r0 += kTile) {
-    for (int e = tid; e < kTile * kTile; e += kTile * RY) {
-      const long long row = (long long)(r0 + e / kTile) * N + e % kTile;
-      sa[e] = vp[row + ti * kTile];
-      sb[e] = vp[row + tj * kTile];
-    }
-    __syncthreads();
-    for (int k = 0; k < kTile; ++k) {
-      const float b = sb[k * kTile + tx];
-#pragma unroll
-      for (int q = 0; q < Q; ++q)
-        acc[q] = fmaf(sa[k * kTile + ty + RY * q], b, acc[q]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kVStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_commit();
   }
+  for (int s = 0; s < nk; ++s) {
+    cp_wait<kVStages - 2>();
+    __syncthreads();  // slab s landed for all; slab s - 1 consumed by all
+    if (s + kVStages - 1 < nk) load(s + kVStages - 1);
+    cp_commit();
+    const float* sa = stage + (s % kVStages) * kVStage;
+    const float* sb = sa + kTile * kLdV;
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int q = 0; q < Q; ++q) kinv_t[(ty + RY * q) * kTile + tx] = acc[q];
+    for (int k8 = 0; k8 < kTile; k8 += 8) {
+      if (s * kTile + k8 < 16 * wm) continue;
+      unsigned ah[4], al[4], bh[2], bl[2];
+      frag_a_km(sa + k8 * kLdV + 16 * wm, kLdV, ah, al);
+      frag_b_kn(sb + k8 * kLdV + 8 * wn, kLdV, bh, bl);
+      mma_3xtf32(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += part[e];
+  }
+  cp_wait<0>();
+  __syncthreads();  // every slab consumed before the stacks are reused
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  float* d = kinv_t + (16 * wm + g) * kTile + 8 * wn + 2 * t;
+  d[0] = acc[0];
+  d[1] = acc[1];
+  d[8 * kTile] = acc[2];
+  d[8 * kTile + 1] = acc[3];
 }
 
 // Grid (chunks, P), block (32, 8). FUSED: `kmat` is the lower-only K^-1
@@ -217,7 +259,7 @@ __device__ void kinv_tile(const float* __restrict__ vp, int N, int ti,
 // up)^2.
 template <bool FUSED, bool LINV>
 __global__ void
-__launch_bounds__(kThreads, LINV ? kMinBlocks - 1 : kMinBlocks)
+__launch_bounds__(kThreads, kMinBlocks)
 cov_tape_bwd_kernel(
     const int* __restrict__ tslot, const int* __restrict__ ttype,
     const int* __restrict__ tlpos, const int* __restrict__ trpos,
@@ -226,7 +268,7 @@ cov_tape_bwd_kernel(
     const float* __restrict__ kmat, const float* __restrict__ beta,
     const float* __restrict__ gscale, double* __restrict__ partial, int M,
     int N, int masked, int budget) {
-  extern __shared__ double smem_d[];
+  extern __shared__ __align__(16) double smem_d[];
   const int n_acc = 3 * M + 1;
   const int nt = (N + kTile - 1) / kTile;
   double* region = smem_d;                                // budget bytes
@@ -353,10 +395,10 @@ cov_tape_bwd_kernel(
       tj = k - ti * nt;
     }
     if (LINV) {
-      float* sa = reinterpret_cast<float*>(adj);  // staging, before sweeps
+      // Staging in the stacks, idle before the sweeps, 16-byte aligned.
       __syncthreads();
-      kinv_tile<kTile / (kThreads / kTile)>(kp, N, ti, tj, sa,
-                                            sa + kTile * kTile, kinv_t);
+      kinv_tile(kp, N, ti, tj,
+                reinterpret_cast<float*>(adj + (n_terms * T & 1)), kinv_t);
       __syncthreads();
     }
     if (tid >= T) continue;
@@ -456,11 +498,12 @@ int bwd_table_bytes(int M, int nt, int P, bool linv) {
          4 * (5 * M + 3 * M + 1 + nt + 3 + P);
 }
 
-// Bytes for the accumulators and stacks: kBudget, or more when the grid is
-// too small to fill the card at that size -- the share of an SM that lets
-// the whole grid run at once, so that a long tape keeps its threads when
-// only a few blocks run (one tile per particle at N <= 32).
-int bwd_budget(int blocks, int tables) {
+// Bytes for the accumulators and stacks: `base` (kBudget; kBudgetLinv for
+// the in-tape entry), or more when the grid is too small to fill the card
+// at that size -- the share of an SM that lets the whole grid run at once,
+// so that a long tape keeps its threads when only a few blocks run (one
+// tile per particle at N <= 32).
+int bwd_budget(int blocks, int tables, int base) {
   int dev = 0, sms = 1, per_sm = 0, per_block = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -471,10 +514,10 @@ int bwd_budget(int blocks, int tables) {
       cudaDeviceGetAttribute(&per_block,
                              cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess)
-    return kBudget;
+    return base;
   const int resident = (blocks + sms - 1) / sms;   // blocks per SM, one wave
   const int fit = min(per_sm / resident - 1024, per_block) - tables;
-  return max(kBudget, fit / 8 * 8);
+  return max(base, fit / 8 * 8);
 }
 
 template <bool FUSED, bool LINV>
@@ -486,7 +529,8 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
   const int nt = (N + kTile - 1) / kTile;
   const int chunks = bwd_chunks(P, tile_count(FUSED, nt));
   const int tables = bwd_table_bytes(M, nt, P, LINV);
-  const int budget = bwd_budget(chunks * P, tables);
+  const int budget =
+      bwd_budget(chunks * P, tables, LINV ? kBudgetLinv : kBudget);
   const int smem = budget + tables;
   cudaError_t err = cudaFuncSetAttribute(
       cov_tape_bwd_kernel<FUSED, LINV>,

@@ -17,9 +17,12 @@
 //   identity); beta[c] = sum_r X[r, c] alpha[r]; fro = sum X^2 over the
 //   lower triangle; and, with K^-1 wanted, block (bi, bj <= bi) of K^-1 as
 //   sum_{k >= bi} X[k, bi]^T X[k, bj], strictly-upper blocks written as 0
-//   (diagonal blocks dense-symmetric, as gp_math.kinv_from_linv(
-//   lower_only=True)). X lives in a [P, N, N] scratch the wrapper
-//   allocates; only its lower block triangle is ever written or read.
+//   (diagonal blocks dense, as gp_math.kinv_from_linv(lower_only=True),
+//   except that the upper triangle of a diagonal block may differ from its
+//   mirror by rounding: element (i, j) takes column i as the tensor cores'
+//   A operand, (j, i) takes it as B, and nothing reads above the
+//   diagonal). X lives in a [P, N, N] scratch the wrapper allocates; only
+//   its lower block triangle is ever written or read.
 //   With L^-1 wanted (autogp_linv_beta), X is the output V instead, and
 //   each block also writes the exact zeros of its strip's strict upper
 //   part (the blocks above the diagonal block and the upper triangle of
@@ -30,11 +33,11 @@
 // What bounds it on this card: operations. At [64, 1024, 1024] the
 // substitution is N^3/3 flops per particle (22.9 GFLOP in all; the blocked
 // form does ~1.4x that, the diagonal blocks' Wd products included) and
-// K^-1 another N^3/3. The substitution's tile products run on the tensor
-// cores in 3xTF32 (three TF32 products per FP32 product, below), so its
-// bound is 3 x 22.9 GFLOP over 495 TFLOP/s, 0.14 ms; K^-1 stays on the
-// FP32 pipe, 0.34 ms at 67 TFLOP/s. Traffic is ~0.57 GB (0.17 ms at 3.35
-// TB/s). A substitution is a dependent chain: column block j of L^-1
+// K^-1 another N^3/3 (the blocked form: 120 products of 2 x 128^3, 32.2
+// GFLOP). Both run on the tensor cores in 3xTF32 (three TF32 products per
+// FP32 product, tf32x3.cuh), so each is bound at 3 x 22.9 GFLOP over 495
+// TFLOP/s, 0.14 ms. Traffic is ~0.57 GB (0.17 ms at 3.35 TB/s). A
+// substitution is a dependent chain: column block j of L^-1
 // needs X[k, j] before X[k + 1, j], so a block's time is its strip's
 // chain, and strip j's chain grows with nb - 1 - j.
 //
@@ -48,11 +51,7 @@
 //   longest pairs are scheduled first.
 // - Each 128 x 128 output tile is a product on the tensor cores: 8 warps,
 //   each a 64 x 32 tile of mma.sync.m16n8k8 TF32 products with FP32
-//   accumulators. Every operand x is split into hi = tf32(x) (round to
-//   nearest) and lo = tf32(x - hi), and the tile takes lo*hi' + hi*lo' +
-//   hi*hi' (3xTF32): the dropped lo*lo' term is ~2^-22 of the product, so
-//   the result is FP32-class (~1e-6 relative), finer than the reference's
-//   bf16x3 (dot3). Plain 1xTF32 (about three digits) is never used.
+//   accumulators, in 3xTF32 (tf32x3.cuh's mma_3xtf32).
 // - The operands stream through a 5-stage cp.async ring of 32-deep slabs
 //   (A 128 x 32, B 32 x 128, 35 KB a stage, 175 KB in all): the next four
 //   slabs load while the current one multiplies, one barrier per slab.
@@ -61,10 +60,29 @@
 //   fro sums keep 16 loads in flight per thread.
 // - Strips of B < 128 (N = 32, 64) are single blocks, N = B: there is no
 //   product, only the Wd copy and the statistics.
-// - K^-1 is a second kernel on FP32 CUDA cores (kinv_lower_kernel, one
-//   block per (particle, output block), a (B/16)^2 register tile per
-//   thread); its row order is the one kernel 5c's in-tape K^-1 tile
-//   repeats, so the two gradient backends stay bitwise equal.
+// - K^-1 is a second kernel on the tensor cores (kinv_lower_kernel): one
+//   block per particle and lower block (bi, bj <= bi), nb (nb + 1) / 2 of
+//   them (36 at nb = 8); each strictly-lower block also writes the zeros
+//   of its mirror above the diagonal, so no block only writes zeros. Its
+//   16 warps each own a 32 x 32 tile (B = 128; 16 x 16 at B = 64, 16 x 8
+//   on 8 warps at B = 32) through mma_3xtf32, element (i, j) with column i
+//   of X as the A operand: both operands stream from X as [32 rows][B
+//   columns] slabs (the A slab read transposed from shared memory),
+//   through a 3-stage cp.async ring (104 KB at B = 128), one barrier per
+//   slab; a diagonal block stages its one strip once. A fragment's chain
+//   starts at its first row (the rows above are zeros of X), 8 rows a
+//   chunk in ascending order; each slab's chunks go into a partial from
+//   +0 that is then added to the FP32 sum (tf32x3.cuh: the tensor cores'
+//   accumulation truncates, and one chain over all rows lost 2.8e-5 at N
+//   = 1024). Kernel 5c's in-tape K^-1 tile (cov_tape_bwd.cu) forms every
+//   element the same way, so the two gradient backends stay bitwise
+//   equal. The two accumulator sets take 64 registers a thread: 16 warps
+//   of 32 x 32 tiles keep them under 128, one block per SM. Blocks are
+//   numbered particle-fastest in ascending bi, so the longest
+//   contractions of the whole batch (small bi, up to 8x the shortest) run
+//   first; numbering a particle's blocks together instead (its 4 MB of X
+//   in L2 while they run) left a tail of long blocks and ran 9% slower at
+//   N = 1024.
 // - beta and fro are reduced over each strip in a fixed order (beta by
 //   FP32 FMA, fro in double), then a one-warp pass sums the nb strip
 //   partials of each particle in order, so results repeat bit for bit and
@@ -76,72 +94,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBK = 16;        // K-step of the tiled product
+using namespace autogp;
 
-// acc += A * Bm for one B x B output tile, A [B x K], Bm [K x B], both
-// row-major with leading dimensions lda/ldb. kTransA reads A^T instead:
-// element (r, k) of the product's left factor is A[k * lda + r]. Thread
-// (ty, tx) of the 16 x 16 block owns rows ty + 16 i and columns tx + 16 j.
-template <int B, bool kTransA>
-__device__ void gemm_acc(const float* A, long long lda, const float* Bm,
-                         long long ldb, int K, float (&acc)[B / 16][B / 16],
-                         float* sA, float* sB) {
-  constexpr int TM = B / 16;
-  constexpr int LD = B + 1;  // padded: column walks touch distinct banks
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int e = tid; e < B * kBK; e += kThreads) {
-      if (kTransA) {
-        const int kk = e / B, r = e % B;
-        sA[kk * LD + r] = A[(long long)(k0 + kk) * lda + r];
-      } else {
-        const int r = e / kBK, kk = e % kBK;
-        sA[kk * LD + r] = A[(long long)r * lda + k0 + kk];
-      }
-      const int kb = e / B, c = e % B;
-      sB[kb * LD + c] = Bm[(long long)(k0 + kb) * ldb + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sA[kk * LD + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) b[j] = sB[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-template <int B>
-__device__ __forceinline__ void zero(float (&acc)[B / 16][B / 16]) {
-#pragma unroll
-  for (int i = 0; i < B / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < B / 16; ++j) acc[i][j] = 0.0f;
-}
-
-// Store sign * acc into the B x B block at dst (leading dimension ld).
-template <int B>
-__device__ __forceinline__ void store(float* dst, long long ld,
-                                      const float (&acc)[B / 16][B / 16],
-                                      float sign) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < B / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < B / 16; ++j)
-      dst[(long long)(ty + 16 * i) * ld + tx + 16 * j] = sign * acc[i][j];
-}
+constexpr int kThreads = 256;
 
 // ---- 3xTF32 tensor-core tile product (linv_kernel, B = 128) --------------
 constexpr int kTB = 128;                  // output tile
@@ -152,39 +111,6 @@ constexpr int kLdB = kTB + 8;             // B slab [32][136]
 constexpr int kStageFloats = kTB * kLdA + kSlab * kLdB;
 constexpr int kTcSmem = kStages * kStageFloats * (int)sizeof(float);
 constexpr int kU = 16;  // loads in flight per thread in the strip's copy and sums
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// x = hi + lo + (a remainder ~2^-22 |x|), hi and lo TF32 (round to nearest).
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Warp w owns rows 64 (w / 4) .. +64 and columns 32 (w % 4) .. +32 of the
 // tile: 4 x 4 mma tiles of 16 x 8, 4 accumulators each per thread.
@@ -229,19 +155,13 @@ __device__ __forceinline__ void mma_slab(const float* stage, TcAcc& acc) {
       split_tf32(a[8 * kLdA + 4], ah[mt][3], al[mt][3]);
     }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* b = sB + (k8 + t) * kLdB + wn + nt * 8 + g;
-      split_tf32(b[0], bh[nt][0], bl[nt][0]);
-      split_tf32(b[4 * kLdB], bh[nt][1], bl[nt][1]);
-    }
+    for (int nt = 0; nt < 4; ++nt)
+      frag_b_kn(sB + k8 * kLdB + wn + nt * 8, kLdB, bh[nt], bl[nt]);
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-        mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
-        mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
-      }
+      for (int nt = 0; nt < 4; ++nt)
+        mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);
   }
 }
 
@@ -412,24 +332,152 @@ linv_kernel(const float* __restrict__ L, const float* __restrict__ Wd,
                           smem, sbeta, sfro);
 }
 
-// One block per (bj, bi, particle): K^-1[bi, bj] = sum_{k >= bi}
-// X[k, bi]^T X[k, bj] for bj <= bi, zeros for bj > bi.
+// ---- K^-1 = X^T X on the lower blocks (kinv_lower_kernel) ---------------
+constexpr int kKThreads = 512;  // 16 warps
+constexpr int kKStages = 3;     // its cp.async ring
+
+// Block (bi, bj <= bi) of B x B: the warps as a WGM x WGN grid over it,
+// warp w a WM x WN tile of MT x NT fragments of 16 x 8 (32 x 32 at B =
+// 128; at B = 32 eight warps hold its eight fragments and the others only
+// copy). Both operands stream as [32 rows r][B columns] slabs of X (the A
+// operand transposed in place: element (i, r) at sA[r][i]), rows padded
+// to B + 8 floats (8 mod 32: a fragment load touches 32 banks).
 template <int B>
-__global__ void __launch_bounds__(kThreads)
-kinv_lower_kernel(const float* X, float* __restrict__ Kinv, int N) {
-  __shared__ float sA[kBK * (B + 1)];
-  __shared__ float sB[kBK * (B + 1)];
-  const int bj = blockIdx.x, bi = blockIdx.y, p = blockIdx.z;
-  const long long NN = (long long)N * N;
-  float* out = Kinv + p * NN + (long long)bi * B * N + bj * B;
-  float acc[B / 16][B / 16];
-  zero<B>(acc);
-  if (bj <= bi) {
-    const float* Xp = X + p * NN + (long long)bi * B * N;
-    gemm_acc<B, true>(Xp + bi * B, N, Xp + bj * B, N, N - bi * B, acc, sA,
-                      sB);
+struct KinvTile {
+  static constexpr int WGM = B == 32 ? 2 : 4, WGN = 4;
+  static constexpr int kWarpsUsed = WGM * WGN;
+  static constexpr int WM = B / WGM, WN = B / WGN;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int LD = B + 8;
+  static constexpr int kSlabFloats = kSlab * LD;
+  static constexpr int kStageFloats = 2 * kSlabFloats;
+  static constexpr int kSmem = kKStages * kStageFloats * (int)sizeof(float);
+};
+
+// Rows row .. row + 31 of X's columns a0 .. a0 + B - 1 and b0 .. b0 + B - 1
+// into one stage (only the first when `diag`: the two are the same).
+template <int B>
+__device__ __forceinline__ void kinv_load(float* stage, const float* Xp,
+                                          int N, int row, int a0, int b0,
+                                          bool diag) {
+  using G = KinvTile<B>;
+  constexpr int kRowChunks = B / 4;  // 16-byte copies per row
+  constexpr int kChunks = kSlab * kRowChunks;
+#pragma unroll
+  for (int q0 = 0; q0 < kChunks; q0 += kKThreads) {
+    const int q = q0 + threadIdx.x;
+    if (kChunks % kKThreads != 0 && q >= kChunks) break;
+    const int r = q / kRowChunks, c = (q % kRowChunks) * 4;
+    const float* src = Xp + (long long)(row + r) * N;
+    cp_async16(stage + r * G::LD + c, src + a0 + c);
+    if (!diag)
+      cp_async16(stage + G::kSlabFloats + r * G::LD + c, src + b0 + c);
   }
-  store<B>(out, N, acc, 1.0f);
+}
+
+// acc += the slab's products, formed as one partial sum from +0 per
+// fragment (mma_3xtf32, 8 rows a chunk) and then added in FP32. `rel` is
+// the slab's first row less the block's first row B bi. The chain of a
+// fragment starts at its own first row m0 = 16 floor(i / 16): X is lower
+// triangular, so the rows above hold zeros of every column i of it.
+template <int B>
+__device__ __forceinline__ void kinv_slab(
+    const float* sA, const float* sB, int rel,
+    float (&acc)[KinvTile<B>::MT][KinvTile<B>::NT][4]) {
+  using G = KinvTile<B>;
+  const int warp = threadIdx.x >> 5;
+  if (warp >= G::kWarpsUsed) return;
+  const int wm = warp / G::WGN * G::WM, wn = warp % G::WGN * G::WN;
+  float part[G::MT][G::NT][4] = {};
+#pragma unroll
+  for (int k8 = 0; k8 < kSlab; k8 += 8) {
+    unsigned bh[G::NT][2], bl[G::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+      frag_b_kn(sB + k8 * G::LD + wn + nt * 8, G::LD, bh[nt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      if (rel + k8 < wm + mt * 16) continue;
+      unsigned ah[4], al[4];
+      frag_a_km(sA + k8 * G::LD + wm + mt * 16, G::LD, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt)
+        mma_3xtf32(part[mt][nt], ah, al, bh[nt], bl[nt]);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+}
+
+// One block per (particle, lower block (bi, bj <= bi)): K^-1[bi, bj] =
+// sum_{r >= B bi} X[r, bi cols]^T X[r, bj cols] on the tensor cores, and,
+// for bj < bi, the zeros of the strictly-upper block (bj, bi). Blocks are
+// numbered particle-fastest, lower blocks in ascending bi: the longest
+// contractions of the whole batch first.
+template <int B>
+__global__ void __launch_bounds__(kKThreads, 1)
+kinv_lower_kernel(const float* X, float* __restrict__ Kinv, int N, int P) {
+  using G = KinvTile<B>;
+  extern __shared__ __align__(16) float smem[];
+  const int q = blockIdx.x / P, p = blockIdx.x % P;
+  int bi = (int)((sqrtf(8.0f * (float)q + 1.0f) - 1.0f) * 0.5f);
+  while ((bi + 1) * (bi + 2) / 2 <= q) ++bi;
+  while (bi * (bi + 1) / 2 > q) --bi;
+  const int bj = q - bi * (bi + 1) / 2;
+  const bool diag = bj == bi;
+  const long long NN = (long long)N * N;
+  const float* Xp = X + p * NN;
+  const int row0 = bi * B, nk = (N - row0) / kSlab;
+
+  float acc[G::MT][G::NT][4] = {};
+#pragma unroll
+  for (int s = 0; s < kKStages - 1; ++s) {
+    if (s < nk)
+      kinv_load<B>(smem + s * G::kStageFloats, Xp, N, row0 + s * kSlab,
+                   bi * B, bj * B, diag);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kKStages - 2>();
+    __syncthreads();  // slab kt landed for all; slab kt - 1 consumed by all
+    const int nxt = kt + kKStages - 1;
+    if (nxt < nk)
+      kinv_load<B>(smem + (nxt % kKStages) * G::kStageFloats, Xp, N,
+                   row0 + nxt * kSlab, bi * B, bj * B, diag);
+    cp_commit();
+    const float* st = smem + (kt % kKStages) * G::kStageFloats;
+    kinv_slab<B>(st, diag ? st : st + G::kSlabFloats, kt * kSlab, acc);
+  }
+  cp_wait<0>();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < G::kWarpsUsed) {
+    const int g = lane >> 2, t = lane & 3;
+    const int wm = warp / G::WGN * G::WM, wn = warp % G::WGN * G::WN;
+    float* out = Kinv + p * NN + (long long)row0 * N + bj * B;
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        float* d =
+            out + (long long)(wm + mt * 16 + g) * N + wn + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(d) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(d + 8 * N) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+  }
+  if (!diag) {
+    float* z = Kinv + p * NN + (long long)bj * B * N + bi * B;
+    for (int e = threadIdx.x; e < B * B / 4; e += kKThreads)
+      *reinterpret_cast<float4*>(z + (long long)(e / (B / 4)) * N +
+                                 e % (B / 4) * 4) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
 }
 
 // fro[p] = sum_j fro_part[p, j], in order.
@@ -457,8 +505,13 @@ int launch(const float* L, const float* wd, const float* alpha, float* X,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (kinv != nullptr) {
-    kinv_lower_kernel<B><<<dim3(nb, nb, P), kThreads, 0, stream>>>(X, kinv,
-                                                                    N);
+    constexpr int ksmem = KinvTile<B>::kSmem;
+    err = cudaFuncSetAttribute(kinv_lower_kernel<B>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ksmem);
+    if (err != cudaSuccess) return (int)err;
+    kinv_lower_kernel<B><<<P * (nb * (nb + 1) / 2), kKThreads, ksmem,
+                           stream>>>(X, kinv, N, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -62,13 +62,16 @@ slot_launches = 0
 TILE = 32   # csrc/cov_tape_bwd.cu kTile
 
 # The tape backward's block geometry (csrc/cov_tape_bwd.cu kThreads,
-# kBudget, kTargetBlocks, kStaging): the partial scratch is sized here by
-# `bwd_chunks`, and the tests hold `bwd_threads` and `tile_runs` to what
-# the kernel must do.
+# kBudget, kBudgetLinv, kTargetBlocks, kStaging): the partial scratch is
+# sized here by `bwd_chunks`, and the tests hold `bwd_threads` and
+# `tile_runs` to what the kernel must do. The in-tape entry stages two
+# 32-row slabs of each of its two V strips, rows padded to 40 floats, and
+# 16 bytes to align them.
 BWD_THREADS = 256
 BWD_BUDGET = 48 * 1024
+BWD_BUDGET_LINV = 46 * 1024
 BWD_TARGET_BLOCKS = 8448
-BWD_STAGING = 2 * TILE * TILE * 4
+BWD_STAGING = 2 * 2 * TILE * (TILE + 8) * 4 + 16
 
 # Gradient terms of a tape instruction, by node type (config.py codes 1-9):
 # the acc(base + k) calls of the kernel's ref_leaf_grad / ref_op_adjoint.
@@ -90,14 +93,17 @@ def bwd_chunks(P: int, N: int, fused: bool) -> int:
 
 
 def bwd_threads(length: int, n_terms: int, linv: bool,
-                budget: int = BWD_BUDGET) -> int:
+                budget: int | None = None) -> int:
     """Threads a block of the tape backward runs for a tape of `length`
     positions and `n_terms` gradient terms (the noise's included): the
     most, up to BWD_THREADS and a multiple of 32 from 32 up, whose double
     accumulators (8 n_terms bytes each) and value and adjoint stacks (12
     bytes per position each, or the in-tape entry's staging strips if
-    larger) fit `budget` bytes (BWD_BUDGET when the grid fills the card;
-    the kernel grows it for a smaller grid)."""
+    larger) fit `budget` bytes (by default BWD_BUDGET, BWD_BUDGET_LINV for
+    the in-tape entry: the budgets when the grid fills the card; the
+    kernel grows them for a smaller grid)."""
+    if budget is None:
+        budget = BWD_BUDGET_LINV if linv else BWD_BUDGET
     t = budget // (12 * length + 8 * n_terms)
     if linv:
         t = min(t, (budget - BWD_STAGING) // (8 * n_terms))

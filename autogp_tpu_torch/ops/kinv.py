@@ -24,8 +24,14 @@ the Pallas `_kernel` (:73) in every one of its launches:
 
 beta = L^-T alpha (= K^-1 x when alpha = L^-1 x) and fro = ||L^-1||_F^2.
 K^-1 is lower-only: strictly-upper B x B blocks are 0 and the diagonal
-blocks dense-symmetric, B = min(N, 128) as in the Cholesky driver, so one
-route covers every power-of-two bucket >= 32.
+blocks dense, B = min(N, 128) as in the Cholesky driver, so one route
+covers every power-of-two bucket >= 32. The kernel forms K^-1 = L^-T L^-1
+on the tensor cores in 3xTF32, element (i, j) with column i of L^-1 as
+the first operand, so the upper triangle of a diagonal block may differ
+from its mirror by rounding; nothing reads it (kernel 5 weights it 0).
+Kernel 5c's in-tape K^-1 tiles (ops/cov_vjp.py) form every lower element
+bit for bit as this kernel does. The plain version's diagonal blocks are
+symmetric.
 
 CUDA tensors launch the kernel (float32, or the wrapper raises); CPU
 tensors take the plain version, which ignores `wd` (as the JAX fallback

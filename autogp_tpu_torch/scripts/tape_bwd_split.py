@@ -14,9 +14,12 @@ they are and prints, for each tree in turns (A B B A with two trees),
 the time of kernel 1 (gram, lower_only) at [64, N, N] with 3/4 of the
 points active for N = 256, 512, 1024, and of kernel 5's fused entry at
 N = 256, 512, 1024 with 256, 512, 768 and 1024 points active (the buckets
-and active counts of the config-4 fit), and of its unfused entry (5b) at
-N = 32 and 1024 on a random cotangent, with nvcc's -Xptxas -v lines for
-both kernels (registers, spills, shared memory).
+and active counts of the config-4 fit), of its in-tape entry (5c) at
+N = 1024 with 768 active, and of its unfused entry (5b) at N = 32 and 1024
+on a random cotangent, with nvcc's -Xptxas -v lines for both kernels
+(registers, spills, shared memory). With two trees it also says whether
+their kernel 1 and kernel 5 outputs are bitwise equal, and each tree's 5c
+bitwise its kernel 5.
 
 --split builds copies of each tree's cov_tape_bwd.cu with clock64()
 stamps (one set per block, read by thread (0, 0)) and prints, at
@@ -32,7 +35,8 @@ layouts are known: the per-element warp reduction of the earlier design
 per-thread accumulators that replaced it.
 
 The inputs are `chip_smoke.py`'s: 64 prior trees (ChangePoints on) from
-its seed, K^-1 and beta from the kinv kernel on the factor of their grams.
+its seed, K^-1 and beta from the kinv kernel on the factor of their grams
+(and for 5c, L^-1 and beta from the same factor).
 Every build is a copy in a temporary directory; nothing in the package
 changes. Times are CUDA events, with the card's name and power limit.
 """
@@ -102,7 +106,7 @@ LAYOUTS = {
     "per-thread accumulators": {
         "detect": "// split: staged",
         "anchors": [
-            ("extern __shared__ double smem_d[];", "", "\n  STAMP_BEGIN();"),
+            ("double smem_d[];", "", "\n  STAMP_BEGIN();"),
             ("// split: staged", "STAMP(0); ", ""),
             ("// split: cotangent", "STAMP(1); ", ""),
             ("// split: forward", "STAMP(2); ", ""),
@@ -130,8 +134,8 @@ def layout_of(src: str) -> str:
 
 
 def stamped(src: str, header: str, plain_acc: bool):
-    """(kernel source, header) with the stamps, and with the gradient-term
-    reduction made a plain add when `plain_acc`."""
+    """(kernel source, cov_formulas.cuh) with the stamps, and with the
+    gradient-term reduction made a plain add when `plain_acc`."""
     lay = LAYOUTS[layout_of(src)]
     src = _replace(src, '#include "cov_formulas.cuh"\n',
                    '#include "cov_formulas.cuh"\n' + _STAMP_HEAD)
@@ -146,14 +150,21 @@ def stamped(src: str, header: str, plain_acc: bool):
     return src, header
 
 
+def headers_of(d: Path) -> dict:
+    """The headers (*.cuh) of a source tree: file name -> text."""
+    return {h.name: h.read_text() for h in sorted(d.glob("*.cuh"))}
+
+
 def build(units: dict, tmp: Path) -> dict:
-    """units: name -> (source text, header text, file name). One nvcc per
-    unit, side by side; name -> (loaded library, ptxas lines)."""
+    """units: name -> (source text, headers {file name: text}, file name).
+    One nvcc per unit, side by side; name -> (loaded library, ptxas
+    lines)."""
     cmds, out = [], {}
-    for i, (name, (text, header, fname)) in enumerate(units.items()):
+    for i, (name, (text, headers, fname)) in enumerate(units.items()):
         d = tmp / f"u{i}"
         d.mkdir()
-        (d / "cov_formulas.cuh").write_text(header)
+        for hname, htext in headers.items():
+            (d / hname).write_text(htext)
         (d / fname).write_text(text)
         so = d / "lib.so"
         log = d / "ptxas.txt"
@@ -248,14 +259,25 @@ class Inputs:
             Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
             g = torch.ones(P, device=self.dev)
             self.cache[(N, n_act)] = (ts, mask, Ki, beta, g)
+            self.cache[("linv", N, n_act)] = kinv.linv_beta(L, a, wd)[:2]
         return self.cache[(N, n_act)]
 
+    def linv(self, N, n_act):
+        """(V = L^-1, beta) of the factor `bwd` used at this shape."""
+        self.bwd(N, n_act)
+        return self.cache[("linv", N, n_act)]
 
-def bwd_call(lib, inp, N, n_act):
-    fn = lib.autogp_cov_tape_bwd
-    fn.argtypes = _build.SIGNATURES["autogp_cov_tape_bwd"]
+
+def bwd_call(lib, inp, N, n_act, linv=False):
+    """Kernel 5 (or, with `linv`, its in-tape entry 5c) on `inp`'s
+    inputs at this shape."""
+    name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
+    fn = getattr(lib, name)
+    fn.argtypes = _build.SIGNATURES[name]
     fn.restype = ctypes.c_int
     ts, mask, Ki, beta, g = inp.bwd(N, n_act)
+    if linv:
+        Ki, beta = inp.linv(N, n_act)
     M = inp.nt.shape[1]
     nt = N // TILE
     n_acc = 3 * M + 1
@@ -272,7 +294,7 @@ def bwd_call(lib, inp, N, n_act):
                  beta.data_ptr(), g.data_ptr(), partial.data_ptr(),
                  out.data_ptr(), P, M, N, stream)
         if err:
-            raise RuntimeError(f"cov_tape_bwd: CUDA error {err} at launch")
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
         return out
     return run
 
@@ -330,9 +352,8 @@ def cov_call(lib, inp, N):
 def times(trees: dict, inp: Inputs, tmp: Path):
     units = {}
     for name, d in trees.items():
-        header = (d / "cov_formulas.cuh").read_text()
         for f in ("cov_tape.cu", "cov_tape_bwd.cu"):
-            units[(name, f)] = ((d / f).read_text(), header, f)
+            units[(name, f)] = ((d / f).read_text(), headers_of(d), f)
     libs = build(units, tmp)
     for (name, f), (_, lines) in libs.items():
         for ln in lines:
@@ -349,6 +370,8 @@ def times(trees: dict, inp: Inputs, tmp: Path):
         for N, a in FIT_SHAPES:
             res[n].setdefault(("kernel 5", N, a), []).append(
                 cuda_ms(bwd_call(bwd_lib, inp, N, a), 5))
+        res[n].setdefault(("kernel 5c", N_MAIN, N_ACT), []).append(
+            cuda_ms(bwd_call(bwd_lib, inp, N_MAIN, N_ACT, linv=True), 5))
         for N in (32, 1024):
             res[n].setdefault(("kernel 5b", N, N * 3 // 4), []).append(
                 cuda_ms(unfused_call(bwd_lib, inp, N), 20 if N == 32 else 5))
@@ -359,13 +382,18 @@ def times(trees: dict, inp: Inputs, tmp: Path):
               for n in (a, b)]
         k5 = [bwd_call(libs[(n, "cov_tape_bwd.cu")][0], inp, N_MAIN,
                        N_ACT)().clone() for n in (a, b)]
+        k5c = [bwd_call(libs[(n, "cov_tape_bwd.cu")][0], inp, N_MAIN,
+                        N_ACT, linv=True)().clone() for n in (a, b)]
         rel = ((k5[0].double() - k5[1].double()).abs().amax(1)
                / k5[1].double().abs().amax(1))
         fin = torch.isfinite(rel)
         print(f"kernel 1 at [64, 1024, 1024]: {a} bitwise {b}: "
               f"{torch.equal(k1[0], k1[1])}; kernel 5 at [64, 1024, 1024] "
               f"({N_ACT} active), {a} vs {b}: max per-particle rel "
-              f"{float(rel[fin].max()):.3e} on {int(fin.sum())} finite")
+              f"{float(rel[fin].max()):.3e} on {int(fin.sum())} finite, "
+              f"bitwise: {torch.equal(k5[0], k5[1])}; 5c bitwise kernel 5: "
+              f"{a} {torch.equal(k5c[0], k5[0])}, "
+              f"{b} {torch.equal(k5c[1], k5[1])}")
     for n in names:
         for key, v in res[n].items():
             print(f"[{n}] {key[0]} ms at [64, {key[1]}, {key[1]}] with "
@@ -382,7 +410,9 @@ def split(trees: dict, inp: Inputs, tmp: Path):
         print(f"[{name}] stamp layout: {layouts[name]}")
         for plain in (False, True):
             s, h = stamped(src, header, plain)
-            units[(name, plain)] = (s, h, "cov_tape_bwd.cu")
+            units[(name, plain)] = (s, {**headers_of(d),
+                                        "cov_formulas.cuh": h},
+                                    "cov_tape_bwd.cu")
     libs = build(units, tmp)
     ts, mask, _, _, _ = inp.bwd(N_MAIN, N_ACT)
     nt = N_MAIN // TILE

@@ -495,13 +495,12 @@ def main():
     kv_lib_ms = cuda_ms(torch, lib_kinv, 5)
     NN = P_MAIN * N_MAIN * N_MAIN
     # Triangular inverse and L^-T L^-1: N^3 / 3 flops each (LAPACK trtri,
-    # lauum). The inverse runs on the tensor cores in 3xTF32 (three TF32
-    # products for each FP32 one), L^-T L^-1 on the FP32 pipe. Read L, Wd,
-    # alpha once, write K^-1, beta, fro once.
+    # lauum), both on the tensor cores in 3xTF32 (three TF32 products for
+    # each FP32 one). Read L, Wd, alpha once, write K^-1, beta, fro once.
     sub_tf32 = 3 * P_MAIN * N_MAIN ** 3 / 3
-    kinv_bound = bound(P_MAIN * N_MAIN ** 3 / 3, 0,
-                       4 * (2 * NN + P_MAIN * N_MAIN * Bk + 3 * P_MAIN
-                            * N_MAIN), tf32=sub_tf32)
+    kprod_tf32 = 3 * P_MAIN * N_MAIN ** 3 / 3
+    kinv_bound = bound(0, 0, 4 * (2 * NN + P_MAIN * N_MAIN * Bk + 3 * P_MAIN
+                                  * N_MAIN), tf32=sub_tf32 + kprod_tf32)
     stats_bound = bound(0, 0, 4 * (NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
                                    * N_MAIN), tf32=sub_tf32)
     # Reported, not gated: the same entry on the factor of phase 6, the
@@ -554,6 +553,26 @@ def main():
           f"{st_plain_ms:.4f}), bound "
           f"{stats_bound[0]:.4f} ms ({stats_bound[2]})")
     del Ki, Kf
+
+    # kinv_lower_kernel (K^-1 = X^T X, X = L^-1) alone, beside its own
+    # bound (N^3 / 3 in 3xTF32; the lower X read once, K^-1 written once)
+    # and one FP32 bmm of the full square (TF32 off) as a yardstick.
+    X_s = kinv.linv_beta(L_s, a_s, wd_s)[0]
+    kl_ms = device_ms(torch, lambda: kinv.kinv_beta_strips(a_s, wd_s, L_s),
+                      ("kinv_lower_kernel",), 5)
+    kl_bound = bound(0, 0, 4 * (P_MAIN * N_MAIN * (N_MAIN + 1) // 2 + NN),
+                     tf32=kprod_tf32)
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kl_lib_ms = cuda_ms(torch, lambda: torch.bmm(X_s.mT, X_s), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    del X_s
+    phase("kinv_lower", f"kinv_lower_kernel alone at [64, 1024, 1024] "
+          f"{kl_ms:.4f} ms, bound {kl_bound[0]:.4f} ms ({kl_bound[2]}); "
+          f"torch.bmm(X^T, X) in FP32 with TF32 off (the full square, twice "
+          f"the lower blocks' work) {kl_lib_ms:.4f} ms")
 
     # ---- 6. bwd (kernel 5), on phase 5's prior-tree factor ---------------
     g1 = torch.ones(P_MAIN, device=dev)
@@ -875,8 +894,8 @@ def main():
     linv_bound = bound(0, 0, 4 * (2 * NN + P_MAIN * N_MAIN * Bk + 2 * P_MAIN
                                   * N_MAIN), tf32=sub_tf32)
     wd_flops = P_MAIN * N_MAIN * Bk ** 2 / 3
-    kinvb_bound = bound(P_MAIN * N_MAIN ** 3 / 3 + wd_flops, 0,
-                        4 * (2 * NN + 2 * P_MAIN * N_MAIN), tf32=sub_tf32)
+    kinvb_bound = bound(wd_flops, 0, 4 * (2 * NN + 2 * P_MAIN * N_MAIN),
+                        tf32=sub_tf32 + kprod_tf32)
     statsb_bound = bound(wd_flops, 0, 4 * (NN + 2 * P_MAIN * N_MAIN),
                          tf32=sub_tf32)
     intape_msgs = [
@@ -947,12 +966,14 @@ def main():
     del V_c
     # Needed work: kernel 5's, plus the active lower triangle of K^-1 from
     # L^-1: sum over active i of (i + 1) (n - i) products, i.e.
-    # n (n + 1) (n + 2) / 3 flops per particle; the active lower triangle
-    # of L^-1 and the active beta read once.
+    # n (n + 1) (n + 2) / 3 flops per particle, on the tensor cores in
+    # 3xTF32 (three TF32 products each); the active lower triangle of L^-1
+    # and the active beta read once.
     ktile_flops = P_MAIN * n_act * (n_act + 1) * (n_act + 2) / 3
-    linv_bwd_bound = bound(sum(c[0] for c in bwd_c) * n_low + ktile_flops,
+    linv_bwd_bound = bound(sum(c[0] for c in bwd_c) * n_low,
                            sum(c[1] for c in bwd_c) * n_low,
-                           4 * P_MAIN * (n_low + n_act))
+                           4 * P_MAIN * (n_low + n_act),
+                           tf32=3 * ktile_flops)
     intape_msgs.append(
         f"(b) cov_tape_bwd_linv vs f64 plain on the same V, beta "
         f"({int(ok_l.sum())} particles): worst pbar {float(e_pl.max()):.3e} "

@@ -145,22 +145,26 @@ def _spd(dev, P, N, seed):
                           dtype=torch.float64)
 
 
-@pytest.mark.parametrize("N", [32, 256, 512, 1024])
+@pytest.mark.parametrize("N", [32, 64, 128, 256, 512, 1024])
 def test_kinv_kernel_matches_plain(cuda, N):
     """kinv_beta_strips and linv_stats_wd on the card against the plain
     version in float64 on the same float32 factor: normwise 1e-4 for the
-    lower K^-1 and beta, 1e-5 for ||L^-1||_F^2 (3xTF32 tile products and
-    float32 FMA on grams of condition number <= 5); strictly-upper blocks
-    exactly 0. N = 512 and 1024 (4 and 8 column strips) pair long strips
-    with short ones in one block."""
+    lower K^-1 and beta, 1e-5 for ||L^-1||_F^2 (3xTF32 tensor-core products
+    and float32 FMA on grams of condition number <= 5); strictly-upper
+    blocks exactly 0; two runs bitwise equal. N = 32, 64 and 128 are one
+    strip (K^-1 one B x B product, B = N); N = 512 and 1024 (4 and 8
+    column strips) pair long strips with short ones in one block."""
     K, x = _spd(cuda, 8, N, seed=N)
     _, a, wd, L = chol.chol_solve_strips(torch.tril(K).float(), x.float())
     before = (kinv.strips_launches, kinv.stats_launches)
     Ki, beta, fro = kinv.kinv_beta_strips(a, wd, L)
+    Ki2, beta2, fro2 = kinv.kinv_beta_strips(a, wd, L)
     b2, f2 = kinv.linv_stats_wd(L, a, wd)
     torch.cuda.synchronize()
-    assert (kinv.strips_launches, kinv.stats_launches) == (before[0] + 1,
+    assert (kinv.strips_launches, kinv.stats_launches) == (before[0] + 2,
                                                            before[1] + 1)
+    assert (torch.equal(Ki, Ki2) and torch.equal(beta, beta2)
+            and torch.equal(fro, fro2))
     Kr, br, fr = kinv.kinv_beta_plain(L.double(), a.double())
 
     def rel(u, v):
@@ -457,7 +461,7 @@ def _rel_or_zero(got, ref):
                        torch.where(num == 0, 0.0, float("inf")))
 
 
-@pytest.mark.parametrize("N", [32, 256, 1024])
+@pytest.mark.parametrize("N", [32, 64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("last_rows", [0, 1, 31, 32])
 def test_tape_bwd_mixed_tapes_match_plain(cuda, N, last_rows):
     """Kernel 5 and its in-tape entry 5c on 16 trees whose tapes run from

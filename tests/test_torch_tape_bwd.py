@@ -125,11 +125,12 @@ def test_tape_terms_and_threads_fit_the_budget():
             for linv in (False, True):
                 T = cov_vjp.bwd_threads(L, n, linv)
                 stag = cov_vjp.BWD_STAGING if linv else 0
+                budget = (cov_vjp.BWD_BUDGET_LINV if linv
+                          else cov_vjp.BWD_BUDGET)
 
                 def fits(t):
                     stacks = 12 * L * t
-                    return (8 * n * t + max(stacks, stag)
-                            <= cov_vjp.BWD_BUDGET)
+                    return 8 * n * t + max(stacks, stag) <= budget
                 assert 1 <= T <= cov_vjp.BWD_THREADS and fits(T)
                 if T >= 32 and T < cov_vjp.BWD_THREADS:
                     assert not fits(T + 32)

@@ -1,5 +1,6 @@
 """The precision of the kinv kernel's tile products (csrc/kinv.cu), on the
-CPU: its block substitution run in emulated 3xTF32 arithmetic.
+CPU: its block substitution and its K^-1 product run in emulated 3xTF32
+arithmetic.
 
 `linv_kernel` forms L^-1 on the tensor cores: every operand x of a tile
 product is split into hi = tf32(x) (round to nearest, 10 mantissa bits) and
@@ -12,14 +13,26 @@ result is held to the float64 plain version on the same float32 factor
 with the gates of chip_smoke.py phase 5 (normwise 1e-4 for L^-1 and beta,
 1e-5 for ||L^-1||_F^2) on the grams of condition number < 1e5; plain
 1xTF32 (hi*hi' alone) misses them.
+
+K^-1 = X^T X (kinv_lower_kernel, and kernel 5c's in-tape tiles, which
+form the same elements) is emulated the same way, block (bi, bj <= bi)
+contracting the rows >= B bi of the 3xTF32 X, and held at normwise 1e-4
+on the lower triangle to the float64 plain version on the same float32
+factor (phase 5's K^-1 gate) and to the JAX package's kinv_beta_strips
+kernel run in interpret mode in float32, at HIGHEST precision (fast=False)
+and at the reference's own bf16x3 (fast=True); a 1xTF32 product misses
+the gate.
 """
 
 import warnings
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from autogp_tpu.ops import kinv_pallas
 from autogp_tpu_torch import config as C
 from autogp_tpu_torch import model as TM
 from autogp_tpu_torch.ops import cov, kinv
@@ -56,6 +69,26 @@ def linv_blocked(L, wd, passes):
             S = tc_matmul(L[:, r, j * B:k * B], X[:, j * B:k * B, c], passes)
             X[:, r, c] = -tc_matmul(wd[:, k], S, passes)
     return X
+
+
+def kinv_blocked(X, passes):
+    """The kernel's K^-1 product from X = L^-1: block (bi, bj <= bi) =
+    sum_{r >= B bi} X[r, bi]^T X[r, bj], strictly-upper blocks 0; float32."""
+    K = torch.zeros_like(X)
+    for bi in range(X.shape[-1] // B):
+        R = X[:, bi * B:, :]
+        for bj in range(bi + 1):
+            K[:, bi * B:(bi + 1) * B, bj * B:(bj + 1) * B] = tc_matmul(
+                R[..., bi * B:(bi + 1) * B].mT, R[..., bj * B:(bj + 1) * B],
+                passes)
+    return K
+
+
+def lower_normwise(a, b):
+    """Max over particles of max|tril(a - b)| / max|tril(b)|."""
+    a, b = torch.tril(a).double(), torch.tril(b).double()
+    return float(((a - b).abs().flatten(1).amax(1)
+                  / b.abs().flatten(1).amax(1)).max())
 
 
 def prior_grams():
@@ -115,6 +148,16 @@ def case():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def _no_persistent_cache():
+    """Interpret-mode pallas_call executables segfault the persistent
+    compile cache (see tests/test_pallas.py); keep them out of it."""
+    old = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    yield
+    jax.config.update("jax_compilation_cache_dir", old)
+
+
 def _errors(L, alpha, wd, ref, passes):
     X = linv_blocked(L, wd, passes)
     beta = (X.mT @ alpha[..., None])[..., 0]
@@ -151,3 +194,41 @@ def test_tf32x1_misses_the_kinv_gates(case):
     L, alpha, wd, cond, ref = case
     e = _errors(L, alpha, wd, ref, passes=1)
     assert e[0] > 1e-4 or e[1] > 1e-4 or e[2] > 1e-5, e
+
+
+def test_kinv_product_tf32x3_meets_the_gate(case):
+    """The 3xTF32 K^-1 product of the 3xTF32 L^-1 within phase 5's K^-1
+    gate (normwise 1e-4, lower triangle) of the float64 plain version on
+    the same float32 factor."""
+    L, alpha, wd, cond, _ = case
+    ref = kinv.kinv_beta_plain(L.double(), alpha.double())[0]
+    e = lower_normwise(kinv_blocked(linv_blocked(L, wd, 3), 3), ref)
+    assert e <= 1e-4, f"error {e}, conditions {sorted(cond.tolist())}"
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["highest", "bf16x3"])
+def test_kinv_product_tf32x3_matches_pallas_interpret(case, fast):
+    """The same K^-1 against autogp_tpu's kinv_beta_strips kernel
+    (_launch_strips, interpret=True) on the same float32 strips, Wd and
+    alpha: normwise 1e-4 on the lower triangle, with the reference's
+    contractions at HIGHEST (fast=False, as tests/test_torch_kinv.py runs
+    it) and at its own gradient precision, bf16x3 (fast=True)."""
+    L, alpha, wd, cond, _ = case
+    strips = tuple(jnp.asarray(L[:, k * B:, k * B:(k + 1) * B].numpy())
+                   for k in range(N // B))
+    kj = kinv_pallas._launch_strips(jnp.asarray(alpha.numpy()),
+                                    jnp.asarray(wd.numpy()), strips,
+                                    interpret=True, fast=fast)[0]
+    kj = torch.as_tensor(np.array(kj))
+    assert kj.dtype == torch.float32
+    e = lower_normwise(kinv_blocked(linv_blocked(L, wd, 3), 3), kj)
+    assert e <= 1e-4, f"error {e}, conditions {sorted(cond.tolist())}"
+
+
+def test_kinv_product_tf32x1_misses_the_gate(case):
+    """A plain TF32 K^-1 product (hi*hi' alone), even of the 3xTF32 L^-1,
+    misses the 1e-4 gate: why both K^-1 kernels pay for three products."""
+    L, alpha, wd, _, _ = case
+    ref = kinv.kinv_beta_plain(L.double(), alpha.double())[0]
+    e = lower_normwise(kinv_blocked(linv_blocked(L, wd, 3), 1), ref)
+    assert e > 1e-4, e
