@@ -1,6 +1,7 @@
 // Leaf, operator and derivative formulas of the kernel-expression trees,
-// shared by the covariance assembly kernels (cov_tape.cu, cov_slot.cu) and
-// their backward kernels (cov_tape_bwd.cu, cov_slot_bwd.cu).
+// shared by the covariance assembly (cov_assemble.cuh's tile body, which
+// kernels 1 and 6 run) and its backward (cov_tape_bwd.cu, whose body
+// kernels 5, 5b, 5c and 7 run).
 //
 // They are the guarded formulas of the reference (GP.jl:135-517;
 // autogp_tpu/ops/cov_pallas.py:46-133, cov_pallas_vjp.py:56-255):
@@ -258,42 +259,6 @@ __device__ __forceinline__ void ref_leaf_grad(int t, const float* pr, float v,
     default:
       break;
   }
-}
-
-// Adds gradient terms whose index is uniform across the block: each term is
-// summed over the warp by shuffles and added by lane 0 into the warp's row
-// of a double accumulator in shared memory. No atomics, so sums repeat bit
-// for bit.
-struct WarpAcc {
-  double* row;
-  int lane;
-  __device__ __forceinline__ void operator()(int idx, double term) const {
-    const double s = warp_sum(term);
-    if (lane == 0) row[idx] += s;
-  }
-};
-
-// out[p, k] = sum over tiles of partial[p, tile, k], tiles in order.
-static __global__ void reduce_tiles_kernel(const double* __restrict__ partial,
-                                           float* __restrict__ out,
-                                           int n_tiles, int n_acc) {
-  const int p = blockIdx.x;
-  const double* pp = partial + (long long)p * n_tiles * n_acc;
-  for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
-    double s = 0.0;
-    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * n_acc + k];
-    out[(long long)p * n_acc + k] = (float)s;
-  }
-}
-
-// Thread rows (of 32 threads) of a backward block whose value (float) and
-// adjoint (double) stacks [M][threads] fit the shared-memory budget.
-constexpr int kBwdSmemBudget = 140 * 1024;
-
-static inline int bwd_thread_rows(int M) {
-  int ry = 8;
-  while (ry > 1 && 12 * M * 32 * ry > kBwdSmemBudget) ry /= 2;
-  return ry;
 }
 
 }  // namespace autogp

@@ -1,173 +1,153 @@
 // Backward of the per-slot covariance assembly (cov_slot.cu): the gradient
 // of sum_ij Kbar_ij K_ij with respect to the transformed node parameters
-// [M, 3] and the noise of each particle, for a given cotangent Kbar.
+// [M, 3] and the noise of each particle, for a given cotangent Kbar; the
+// input is the heap itself, with no instruction tape.
 //
 // Replaces: autogp_tpu/ops/cov_pallas_vjp.py, _bwd_kernel (with its forward
 // sweep _fwd_values), launched there by _cov_grads, the backward of
 // cov_matrix_diff(tape=False).
 //
 // What it computes: for particle p with heap node_type[p] ([M] slots,
-// children of s at 2s + 1 and 2s + 2, type 0 = empty), every element (i, j)
-// takes kbar = Kbar_ij (times m_i m_j when `masked`), sweeps all M slots in
-// the static post-order `order` storing each active slot's value, then
-// sweeps them in reverse (parents before children) to propagate adjoints
-// from the root (slot 0) and add each leaf's and ChangePoint's
+// children of s at 2s + 1 and 2s + 2, type 0 = empty) and the static
+// post-order `order` of the full heap, every element (i, j) takes kbar =
+// Kbar_ij (times m_i m_j when `masked`), runs the tree forward storing
+// each active slot's value, then in reverse (parents before children) to
+// propagate adjoints from the root and add each leaf's and ChangePoint's
 // d K_ij / d theta, times its adjoint, into theta's slot; kbar on the
 // diagonal goes to the noise. out[p] = [pbar (M x 3), nbar]. No symmetry
-// of Kbar is assumed: every tile is visited with weight 1. The formulas
-// are cov_formulas.cuh's, the ones the tape backward (cov_tape_bwd.cu)
-// runs, so the two kernels agree to the order of their sums.
+// of Kbar is assumed: every element is visited with weight 1. Any N >= 1.
 //
-// What bounds it on this card: FP32 arithmetic and transcendentals, as for
-// the tape backward, plus a type test for each of the M slots in both
-// sweeps whether the slot is active or not; 4 bytes of Kbar read per
-// element.
+// What bounds it on this card: what bounds kernel 5b, the tape backward's
+// unfused entry (cov_tape_bwd.cu), whose contract it shares: instruction
+// issue on the accurate expf / logf / sinf, IEEE divisions and double
+// adjoint arithmetic of two sweeps of the active nodes per element; 4
+// bytes of Kbar read per element. The TPU kernel sweeps all M slots in
+// both directions, a type test for each. The design this replaces did the
+// same per element, one block per 32 x 32 tile (65,536 blocks at
+// [64, 1024, 1024], each staging, zeroing and reducing again), values and
+// adjoints sized by the heap ([M][threads], 93 KB at M = 31, two blocks
+// per SM), and a warp shuffle reduction for every gradient term of every
+// element: 6.86 ms at [64, 1024, 1024] on an H100 SXM, 5b 1.48.
 //
-// What the design does about it: the tape backward's, indexed by heap slot
-// instead of tape position. One block per (particle, 32 x 32 tile), one
-// thread per element column, RY rows of threads stepping over 32 / RY rows;
-// node types, parameters and the post-order in shared memory (broadcast
-// reads, accumulator index uniform across the block); values (float) and
-// adjoints (double) in shared memory as [slot][thread], 93 KB at M = 31
-// (opted in) -- the TPU kernel's two [M, tile_i, tile] VMEM buffers and its
-// row-sum accumulator become these and a per-warp double accumulator filled
-// by shuffle reductions. Warps, then tiles, are summed in a fixed order: no
-// atomics, bitwise repeatable. The cotangent and adjoints are carried and
-// summed in double, as in the tape backward. N need not be a multiple of
-// the tile: edge threads run on a clamped element with cotangent 0, so
-// every warp reduction stays full.
+// What the design does about it: the heap becomes a tape on the device,
+// then kernel 5b's body runs on it. Three launches, nothing between them:
+// - heap_tape_kernel, one warp per particle, writes the post-order tape
+//   of the active slots -- (slot, type, lpos, rpos) [P, M] and the length
+//   [P], the arrays ops/cov.py build_tape writes, entry for entry -- into
+//   scratch the wrapper allocates. It walks `order` 32 slots at a time (at
+//   most 8 chunks at M = 255): each lane reads one slot's type, a ballot
+//   marks the active ones and a popcount of the lanes below gives each its
+//   tape position (and every slot the position build_tape gives it); a
+//   second pass reads each position's children's positions.
+// - autogp_cov_tape_bwd_unfused, kernel 5b's entry, on those tapes: its
+//   body (runs of tiles per block, per-thread double accumulators under a
+//   compact term index, stacks sized by the block's own tape, particles
+//   ranked by decreasing tape length), then reduce_tiles_kernel over the
+//   [P, chunks, 3M + 1] partials. The same kernels on the same tapes, so
+//   the result is bitwise 5b's on the same inputs.
+//
+// An operator on the heap's last level (no room for children; the prior
+// never samples one) stays on the tape with no child positions (lpos =
+// rpos = -1), as build_tape writes it, and 5b's body runs it as it runs it
+// for 5b: its value and gradient are then undefined in both.
 
 #include "cov_formulas.cuh"
+
+// Kernel 5b's entry (cov_tape_bwd.cu).
+extern "C" int autogp_cov_tape_bwd_unfused(
+    const void* tslot, const void* ttype, const void* tlpos,
+    const void* trpos, const void* tlen, const void* params, const void* ts,
+    const void* mask, const void* kbar, void* partial, void* out, int P,
+    int M, int N, int masked, void* stream);
 
 namespace {
 
 using namespace autogp;
 
-__global__ void cov_slot_bwd_kernel(
-    const int* __restrict__ node_type, const int* __restrict__ order,
-    const float* __restrict__ params, const float* __restrict__ ts,
-    const float* __restrict__ mask, const float* __restrict__ kbar,
-    double* __restrict__ partial, int M, int N, int masked) {
-  extern __shared__ double smem_d[];
-  const int T = blockDim.x * blockDim.y;
-  const int nwarps = T / 32;
-  const int n_acc = 3 * M + 1;
-  double* wacc = smem_d;                                  // [nwarps][n_acc]
-  double* adj = wacc + nwarps * n_acc;                    // [M][T]
-  float* val = reinterpret_cast<float*>(adj + M * T);     // [M][T]
-  float* s_par = val + M * T;                             // [3M]
-  int* s_type = reinterpret_cast<int*>(s_par + 3 * M);    // [M] each
-  int* s_order = s_type + M;
+constexpr int kTapeWarps = 4;  // particles per block of heap_tape_kernel
 
-  const int p = blockIdx.y;
-  const int lin = blockIdx.x;
-  const int nt = (N + kTile - 1) / kTile;
-  const int ti = lin / nt;
-  const int tj = lin - ti * nt;
+// Warp w of block b compacts particle 4 b + w's heap into its tape.
+__global__ void __launch_bounds__(32 * kTapeWarps)
+heap_tape_kernel(const int* __restrict__ node_type,
+                 const int* __restrict__ order, int* __restrict__ tslot,
+                 int* __restrict__ ttype, int* __restrict__ tlpos,
+                 int* __restrict__ trpos, int* __restrict__ tlen, int P,
+                 int M) {
+  __shared__ int s_pos[kTapeWarps][kMaxSlots];   // tape position of a slot
+  __shared__ int s_slot[kTapeWarps][kMaxSlots];  // slot of a position
+  __shared__ int s_type[kTapeWarps][kMaxSlots];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = blockIdx.x * kTapeWarps + w;
+  if (p >= P) return;
+  int* pos = s_pos[w];
+  int* slot = s_slot[w];
+  int* type = s_type[w];
+  const int* heap = node_type + (long long)p * M;
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 32 + tx;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int k = tid; k < M; k += T) {
-    s_type[k] = node_type[(long long)p * M + k];
-    s_order[k] = order[k];
+  // Active slots in post-order. Every slot gets build_tape's position:
+  // the active slots up to and including it in post-order, less one.
+  int len = 0;
+  for (int q0 = 0; q0 < M; q0 += 32) {
+    const int q = q0 + lane;
+    const int s = q < M ? order[q] : 0;
+    const int t = q < M ? heap[s] : 0;
+    const unsigned act = __ballot_sync(0xffffffffu, t != 0);
+    const int at = len + __popc(act & ((1u << lane) - 1u));
+    if (q < M) pos[s] = at + (t != 0) - 1;
+    if (t != 0) {
+      slot[at] = s;
+      type[at] = t;
+    }
+    len += __popc(act);
   }
-  for (int k = tid; k < 3 * M; k += T)
-    s_par[k] = params[(long long)p * 3 * M + k];
-  for (int k = tid; k < nwarps * n_acc; k += T) wacc[k] = 0.0;
-  __syncthreads();
+  __syncwarp();
 
-  const float* kp = kbar + (long long)p * N * N;
-  const bool diag_tile = (ti == tj);
-  const int j_raw = tj * kTile + tx;
-  const int j = min(j_raw, N - 1);
-  const float t2 = ts[j];
-  const float mj = mask[j];
-  const WarpAcc acc{wacc + warp * n_acc, lane};
-
-  for (int rr = ty; rr < kTile; rr += blockDim.y) {
-    const int i_raw = ti * kTile + rr;
-    const int i = min(i_raw, N - 1);
-    const Elem e(ts[i], t2);
-
-    double kb = (i_raw < N && j_raw < N) ? (double)kp[(long long)i * N + j]
-                                         : 0.0;
-    if (masked) kb = kb * (double)(mask[i] * mj);
-    if (diag_tile) acc(n_acc - 1, (i_raw == j_raw) ? kb : 0.0);
-
-    // Forward sweep: the value of every active slot, children first.
-    for (int q = 0; q < M; ++q) {
-      const int s = s_order[q];
-      const int t = s_type[s];
-      const float* pr = s_par + 3 * s;
-      if (is_op(t) && 2 * s + 2 < M) {
-        val[s * T + tid] = ref_op_value(t, pr, val[(2 * s + 1) * T + tid],
-                                        val[(2 * s + 2) * T + tid], e);
-      } else if (t != 0) {
-        val[s * T + tid] = ref_leaf_value(t, pr, e);
+  // The tape; no-ops (slot 0, type 0, no children) from the length on.
+  const long long row = (long long)p * M;
+  for (int q = lane; q < M; q += 32) {
+    int s = 0, t = 0, l = -1, r = -1;
+    if (q < len) {
+      s = slot[q];
+      t = type[q];
+      if (2 * s + 1 < M) {  // M = 2^D - 1: then 2s + 2 < M too
+        l = pos[2 * s + 1];
+        r = pos[2 * s + 2];
       }
     }
-
-    // Reverse sweep from the root: adjoints, and the gradient terms.
-    adj[tid] = kb;
-    for (int q = M - 1; q >= 0; --q) {
-      const int s = s_order[q];
-      const int t = s_type[s];
-      const float* pr = s_par + 3 * s;
-      if (is_op(t) && 2 * s + 2 < M) {
-        const int l = 2 * s + 1, r = 2 * s + 2;
-        double al, ar;
-        ref_op_adjoint(t, pr, val[l * T + tid], val[r * T + tid],
-                       adj[s * T + tid], e, 3 * s, al, ar, acc);
-        adj[l * T + tid] = al;
-        adj[r * T + tid] = ar;
-      } else if (t != 0) {
-        ref_leaf_grad(t, pr, val[s * T + tid], adj[s * T + tid], e, 3 * s,
-                      acc);
-      }
-    }
+    tslot[row + q] = s;
+    ttype[row + q] = t;
+    tlpos[row + q] = l;
+    trpos[row + q] = r;
   }
-  __syncthreads();
-
-  // Warps in order into this tile's partial.
-  double* out = partial + ((long long)p * gridDim.x + lin) * n_acc;
-  for (int k = tid; k < n_acc; k += T) {
-    double s = 0.0;
-    for (int w = 0; w < nwarps; ++w) s += wacc[w * n_acc + k];
-    out[k] = s;
-  }
+  if (lane == 0) tlen[p] = len;
 }
 
 }  // namespace
 
-// node_type [P, M] int32 heaps; order [M] int32, the post-order of the full
-// heap; params [P, M, 3], ts and mask [N], kbar [P, N, N] float32; partial
-// scratch [P, ceil(N / 32)^2, 3M + 1] float64; out [P, 3M + 1] float32. Any
-// N >= 1. An operator at the heap's last level (no room for children)
-// is skipped.
+// node_type [P, M] int32 heaps (M = 2^D - 1); order [M] int32, the
+// post-order of the full heap; params [P, M, 3], ts and mask [N], kbar
+// [P, N, N] float32; tapes scratch [4 P M + P] int32 (the tape's slot,
+// type, lpos and rpos [P, M] each, then the lengths [P]); partial scratch
+// [P, chunks, 3M + 1] float64, chunks = min(n^2, max(1, 8448 / P)) for
+// n = ceil(N / 32) (ops/cov_vjp.py bwd_chunks, unfused); out [P, 3M + 1]
+// float32. Any N >= 1.
 extern "C" int autogp_cov_slot_bwd(const void* node_type, const void* order,
                                    const void* params, const void* ts,
                                    const void* mask, const void* kbar,
-                                   void* partial, void* out, int P, int M,
-                                   int N, int masked, void* stream) {
-  if (M < 1 || M > kMaxSlots || N < 1 || P < 1)
+                                   void* tapes, void* partial, void* out,
+                                   int P, int M, int N, int masked,
+                                   void* stream) {
+  if (M < 1 || M > kMaxSlots || (M & (M + 1)) != 0 || N < 1 || P < 1)
     return (int)cudaErrorInvalidValue;
-  const int ry = bwd_thread_rows(M);
-  const int T = 32 * ry;
-  const int n_acc = 3 * M + 1;
-  const int smem = ry * n_acc * 8 + M * T * 12 + 3 * M * 4 + 2 * M * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      cov_slot_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int* tp = (int*)tapes;
+  const long long pm = (long long)P * M;
+  heap_tape_kernel<<<(P + kTapeWarps - 1) / kTapeWarps, 32 * kTapeWarps, 0,
+                     (cudaStream_t)stream>>>(
+      (const int*)node_type, (const int*)order, tp, tp + pm, tp + 2 * pm,
+      tp + 3 * pm, tp + 4 * pm, P, M);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int nt = (N + kTile - 1) / kTile;
-  auto s = (cudaStream_t)stream;
-  cov_slot_bwd_kernel<<<dim3(nt * nt, P), dim3(32, ry), smem, s>>>(
-      (const int*)node_type, (const int*)order, (const float*)params,
-      (const float*)ts, (const float*)mask, (const float*)kbar,
-      (double*)partial, M, N, masked);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_tiles_kernel<<<P, 128, 0, s>>>((const double*)partial, (float*)out,
-                                        nt * nt, n_acc);
-  return (int)cudaGetLastError();
+  return autogp_cov_tape_bwd_unfused(tp, tp + pm, tp + 2 * pm, tp + 3 * pm,
+                                     tp + 4 * pm, params, ts, mask, kbar,
+                                     partial, out, P, M, N, masked, stream);
 }

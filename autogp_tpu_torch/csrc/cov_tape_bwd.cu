@@ -27,8 +27,7 @@
 // The formulas are the reference's guarded ones (cov_pallas_vjp.py:
 // 313-523): GammaExponential and Periodic recover their exponent from the
 // stored value with a clamped log, ChangePoint is a sigmoid, and pi / p is
-// a true division (cov_formulas.cuh, shared with the per-slot backward
-// cov_slot_bwd.cu).
+// a true division (cov_formulas.cuh).
 //
 // The in-tape L^-1 entry takes V = L^-1 [P, N, N] (exact zeros above the
 // diagonal, kinv.cu's autogp_linv_beta) in place of K^-1. Before the
@@ -56,7 +55,8 @@
 // from its input instead: no symmetry is assumed, every element of every
 // tile of the matrix is visited with weight 1, and N need not be a
 // multiple of the tile (edge threads run on a clamped element with
-// cotangent 0).
+// cotangent 0). The per-slot backward (cov_slot_bwd.cu, kernel 7) calls
+// this entry on tapes it compacts from the heap on the device.
 //
 // What bounds it on this card: instruction issue. An element runs the tape
 // twice (up to 2^D - 1 positions, a few in most trees), each position a few
@@ -488,6 +488,19 @@ cov_tape_bwd_kernel(
     out[k] = s;
   }
   // split: partials
+}
+
+// out[p, k] = sum over tiles of partial[p, tile, k], tiles in order.
+__global__ void reduce_tiles_kernel(const double* __restrict__ partial,
+                                    float* __restrict__ out,
+                                    int n_tiles, int n_acc) {
+  const int p = blockIdx.x;
+  const double* pp = partial + (long long)p * n_tiles * n_acc;
+  for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
+    double s = 0.0;
+    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * n_acc + k];
+    out[(long long)p * n_acc + k] = (float)s;
+  }
 }
 
 // Dynamic shared memory of one block besides the accumulators and

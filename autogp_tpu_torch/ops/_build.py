@@ -61,10 +61,10 @@ SIGNATURES = {
     # node_type, post-order, params, noise, ts, mask, out, P, M, N, masked,
     # stream
     "autogp_cov_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # node_type, post-order, params, ts, mask, kbar, partial scratch, out,
-    # P, M, N, masked, stream
-    "autogp_cov_slot_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P],
+    # node_type, post-order, params, ts, mask, kbar, tapes scratch, partial
+    # scratch, out, P, M, N, masked, stream
+    "autogp_cov_slot_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P],
 }
 
 _lib = None

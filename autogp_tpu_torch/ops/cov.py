@@ -1,5 +1,6 @@
 """Kernels 1 and 6: covariance assembly, tape-driven (csrc/cov_tape.cu) and
-per-slot (csrc/cov_slot.cu).
+per-slot (csrc/cov_slot.cu, which compacts each heap into its tape on the
+device and runs kernel 1's tile body: bitwise kernel 1's full gram).
 
 Port of autogp_tpu/ops/cov_pallas.py: `build_tape` (:147-176) as a torch
 op; `cov_tape`, the wrapper of the CUDA kernel that replaces the Pallas
@@ -32,10 +33,10 @@ slot_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _postorder(depth_cap: int, device) -> torch.Tensor:
+def _postorder(depth_cap: int, device, dtype=torch.int64) -> torch.Tensor:
     """The static post-order slot sequence, kept on `device`."""
     return torch.as_tensor(np.asarray(gp_math.postorder(depth_cap)),
-                           dtype=torch.int64, device=device)
+                           dtype=dtype, device=device)
 
 
 def build_tape(node_type, depth_cap: int):
@@ -159,10 +160,10 @@ def cov_matrix_plain(node_type, params_t, noise, ts, mask, depth_cap: int,
 def cov_matrix(node_type, params_t, noise, ts, mask, depth_cap: int,
                masked: bool = True):
     """Grams [P, N, N] = eval_cov(tree)(ts, ts) + noise I of the encoded
-    trees, sweeping all M heap slots (`cov_matrix_batched`,
-    cov_pallas.py:363). With `masked`, rows and columns with mask 0 become
-    the identity. node_type [P, M]; params_t [P, M, 3]; noise [P]; ts,
-    mask [N], any N."""
+    trees, from the heaps themselves (`cov_matrix_batched`,
+    cov_pallas.py:363): one launch, no tape built here. With `masked`,
+    rows and columns with mask 0 become the identity. node_type [P, M];
+    params_t [P, M, 3]; noise [P]; ts, mask [N], any N."""
     if depth_cap > MAX_DEPTH:
         raise ValueError(f"depth_cap={depth_cap} exceeds the kernel's value "
                          f"stack bound {MAX_DEPTH}")
@@ -180,7 +181,7 @@ def slot_inputs(node_type, depth_cap: int):
     if M != (1 << depth_cap) - 1:
         raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
     return (node_type.to(torch.int32).contiguous(),
-            _postorder(depth_cap, node_type.device).to(torch.int32))
+            _postorder(depth_cap, node_type.device, torch.int32))
 
 
 def _launch_slot(node_type, params_t, noise, ts, mask, depth_cap, masked):

@@ -22,10 +22,13 @@ Port of autogp_tpu/ops/cov_pallas_vjp.py:
 - `cov_grads_tape` wraps the same kernel's unfused entry (`beta=None`
   there): the cotangent Kbar [P, N, N] itself is the input, no symmetry is
   assumed and every tile is visited.
-- `cov_grads` wraps the CUDA kernel that replaces the per-slot `_bwd_kernel`
-  (:117, launched by `_cov_grads`, :676): the same contract, sweeping all M
-  heap slots instead of a tape. Both share one plain version, the
-  vector-Jacobian product of `cov.cov_matrix_plain`.
+- `cov_grads` wraps the CUDA kernels that replace the per-slot
+  `_bwd_kernel` (:117, launched by `_cov_grads`, :676): the same contract,
+  given the heaps instead of tapes. A device pass compacts each heap into
+  its tape, then the unfused entry's body runs on it, so the result is
+  bitwise `cov_grads_tape`'s; one C call, three launches, no tape built
+  here. Both share one plain version, the vector-Jacobian product of
+  `cov.cov_matrix_plain`.
 - `cov_matrix_diff` (:741) is the assembly as an autograd Function: forward
   kernel 1 (`tape=True`) or kernel 6, backward `cov_grads_tape` or
   `cov_grads`. Differentiable in (params_t, noise) only.
@@ -90,6 +93,14 @@ def bwd_chunks(P: int, N: int, fused: bool) -> int:
     nt = -(-N // TILE)
     tiles = nt * (nt + 1) // 2 if fused else nt * nt
     return min(tiles, max(1, BWD_TARGET_BLOCKS // P))
+
+
+def given_scratch(P: int, M: int, N: int):
+    """Shapes of the scratch of the given-cotangent entries: the partial
+    sums [P, bwd_chunks(P, N, False), 3M + 1] (float64) of the unfused
+    body, which `cov_grads` runs too, and `cov_grads`' tapes [4 P M + P]
+    (int32: slot, type, lpos and rpos [P, M] each, then the lengths)."""
+    return (P, bwd_chunks(P, N, False), 3 * M + 1), (4 * P * M + P,)
 
 
 def bwd_threads(length: int, n_terms: int, linv: bool,
@@ -262,8 +273,9 @@ def cov_grads_tape(node_type, params_t, kbar, ts, mask, depth_cap: int,
 
 def cov_grads(node_type, params_t, kbar, ts, mask, depth_cap: int,
               masked: bool = True):
-    """The contract of `cov_grads_tape`, by the per-slot backward (all M
-    heap slots swept forward, then in reverse)."""
+    """The contract of `cov_grads_tape`, by the per-slot backward: the
+    heaps are compacted into tapes on the device, then the unfused body
+    runs on them (bitwise `cov_grads_tape`)."""
     if not backend.on_cuda(params_t):
         return cov_grads_plain(node_type, params_t, kbar, ts, mask,
                                depth_cap, masked)
@@ -289,12 +301,10 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
             or mask.shape != (N,)):
         raise ValueError("cov_grads: shapes do not match [P, M] trees on N "
                          "points")
-    n_acc = 3 * M + 1
-    nt = -(-N // TILE)
+    part_shape, tapes_shape = given_scratch(P, M, N)
     dev = params_t.device
-    partial = torch.empty((P, bwd_chunks(P, N, False) if tape else nt * nt,
-                           n_acc), dtype=torch.float64, device=dev)
-    out = torch.empty((P, n_acc), dtype=f32, device=dev)
+    partial = torch.empty(part_shape, dtype=torch.float64, device=dev)
+    out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if tape:
@@ -309,10 +319,12 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
         unfused_launches += 1
     else:
         nt32, order = cov.slot_inputs(node_type, depth_cap)
+        tapes = torch.empty(tapes_shape, dtype=torch.int32, device=dev)
         err = lib.autogp_cov_slot_bwd(
             nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
             ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), stream)
+            tapes.data_ptr(), partial.data_ptr(), out.data_ptr(), P, M, N,
+            int(masked), stream)
         _build.check("autogp_cov_slot_bwd", err)
         slot_launches += 1
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]

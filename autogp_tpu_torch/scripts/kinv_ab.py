@@ -18,8 +18,10 @@ it times each tree's `autogp_kinv` with the K^-1 output in turns (A B B A
 with two trees): kinv_lower_kernel alone (torch.profiler device time per
 launch) and the whole entry (CUDA events), beside the product's bound
 (N^3 / 3 flops per particle in 3xTF32 on the tensor cores; the lower X
-read once and K^-1 written once) and one FP32 `torch.bmm(X^T, X)` with
-TF32 off (the full square: twice the lower blocks' work) as a yardstick.
+read once and K^-1 written once), the plain version's K^-1 half
+(`gp_math.kinv_from_linv`, FP32, TF32 off) and one FP32 `torch.bmm(X^T,
+X)` with TF32 off (the full square: twice the lower blocks' work) as a
+yardstick.
 It checks each tree's lower K^-1 against the float64 plain version on the
 same factor (normwise), its strictly-upper blocks against 0, and two runs
 of it bitwise, and prints the card's name and power limit.
@@ -36,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops import _build
 from autogp_tpu_torch.scripts.tape_bwd_split import (build, cuda_ms,
                                                      headers_of)
@@ -163,11 +166,14 @@ def main(argv=None):
             torch.backends.cuda.matmul.allow_tf32 = False
             try:
                 lib_ms = cuda_ms(lambda: torch.bmm(X.mT, X), 5)
+                plain_ms = cuda_ms(lambda: gp_math.kinv_from_linv(X), 5)
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = was
             b = bound_ms(N)
-            print(f"N={N}: bound {b[0]:.4f} ms ({b[1]}); torch.bmm(X^T, X) "
-                  f"FP32, TF32 off, full square {lib_ms:.4f} ms")
+            print(f"N={N}: bound {b[0]:.4f} ms ({b[1]}); plain K^-1 half "
+                  f"(gp_math.kinv_from_linv) {plain_ms:.4f} ms; "
+                  f"torch.bmm(X^T, X) FP32, TF32 off, full square "
+                  f"{lib_ms:.4f} ms")
             del case, ref, X
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -72,11 +72,16 @@ back to the CPU):
   9. kernel 6 (per-slot assembly) at [64, 1024, 1024] on the phase-3
      trees: against its plain version (normwise <= 1e-5), against the
      plain version in f64 (<= 1e-3) and bitwise against kernel 1's gram;
+     timed there and, beside kernel 1's full gram, at [64, 32, 32] (24
+     points active: the bucket where the online run takes the dense
+     route);
  10. bwd_unfused and kernel 7 (the tape backward's unfused entry and the
      per-slot backward) at [64, 1024, 1024] on the same trees and a fixed
      random non-symmetric cotangent: against the plain version in f64 on
      the same inputs, per particle max|err| / max|ref| <= 1e-3 (parameter)
-     and <= 1e-5 (noise); two runs bitwise equal;
+     and <= 1e-5 (noise); two runs bitwise equal; kernel 7 bitwise 5b on
+     the same cotangent (it compacts the heaps into 5b's tapes on the card
+     and runs 5b's body); both timed there and at [64, 32, 32];
  11. dense_grad -- cov_matrix_diff + mvn_logpdf_masked_cvjp with tape=True
      and tape=False at N = 32 and N = 1024 on the 64 prior particles: the
      value torch.equal to the value path; the two forms' gradients against
@@ -1122,6 +1127,17 @@ def main():
     slot_dev_ms = device_ms(torch, run_slot, ("cov_slot_kernel",), 10)
     slot_plain_ms = cuda_ms(torch, lambda: cov.cov_matrix_plain(
         nt, pt, noise, ts, mask, D, True), 3)
+    # The online run's dense-route bucket: kernel 6 beside kernel 1's full
+    # gram on the same inputs (wrapper, kernel alone).
+    ts32, mask32 = grid(32, 24)
+    small = {
+        "kernel 6": (lambda: cov.cov_matrix(nt, pt, noise, ts32, mask32, D,
+                                            masked=True), "cov_slot_kernel"),
+        "kernel 1": (lambda: cov.cov_tape(nt, pt, noise, ts32, ts32, mask32,
+                                          mask32, D, gram=True),
+                     "cov_tape_kernel")}
+    small_ms = {k: (cuda_ms(torch, f, 200), device_ms(torch, f, (n,), 50))
+                for k, (f, n) in small.items()}
     # Needed work: the active nodes on every element of the active square
     # (no symmetry is used); every element of the output written once.
     n_sq = n_act * n_act
@@ -1133,7 +1149,10 @@ def main():
           f"plain f64 {slot_rel64:.3e} (gate 1e-3), bitwise equal to kernel "
           f"1's gram; ms (wrapper, kernel alone, plain) ({slot_ms:.4f}, "
           f"{slot_dev_ms:.4f}, {slot_plain_ms:.4f}), bound "
-          f"{slot_bound[0]:.4f} ms ({slot_bound[1]})")
+          f"{slot_bound[0]:.4f} ms ({slot_bound[1]}); at [64, 32, 32] with "
+          f"24 active, ms (wrapper, kernel alone): "
+          + ", ".join(f"{k} ({a:.4f}, {b:.4f})"
+                      for k, (a, b) in small_ms.items()))
 
     # ---- 10. bwd_unfused (kernel 5b) and kernel 7 ----------------------
     kbar = torch.randn(P_MAIN, N_MAIN, N_MAIN, generator=gen, device=dev)
@@ -1157,12 +1176,15 @@ def main():
     given_bound = bound(sum(c[0] for c in given_c) * n_sq,
                         sum(c[1] for c in given_c) * n_sq,
                         4 * P_MAIN * n_sq)
-    given = {}
+    given, outs = {}, {}
+    gen32 = torch.Generator(device=dev).manual_seed(32)
+    kbar32 = torch.randn(P_MAIN, 32, 32, generator=gen32, device=dev)
     for name, fn, knames in (
             ("bwd_unfused", cov_vjp.cov_grads_tape,
              ("cov_tape_bwd_kernel", "reduce_tiles_kernel")),
             ("kernel7", cov_vjp.cov_grads,
-             ("cov_slot_bwd_kernel", "reduce_tiles_kernel"))):
+             ("heap_tape_kernel", "cov_tape_bwd_kernel",
+              "reduce_tiles_kernel"))):
         def run_given():
             return fn(nt, pt, kbar, ts, mask, D, masked=True)
         pb_g, nb_g = run_given()
@@ -1170,6 +1192,11 @@ def main():
         torch.cuda.synchronize()
         if not (torch.equal(pb_g, pb_g2) and torch.equal(nb_g, nb_g2)):
             fail(f"{name}: two runs on the same inputs differ")
+        outs[name] = (pb_g, nb_g)
+        if name == "kernel7" and not (
+                torch.equal(pb_g, outs["bwd_unfused"][0])
+                and torch.equal(nb_g, outs["bwd_unfused"][1])):
+            fail("kernel 7 is not bitwise 5b on the same cotangent")
         e_p = per_particle_rel(pb_g, pr)[ok_g]
         e_n = ((nb_g.double() - nr).abs() / nr.abs().clamp_min(1.0))[ok_g]
         if not (float(e_p.max()) <= 1e-3 and float(e_n.max()) <= 1e-5):
@@ -1178,6 +1205,11 @@ def main():
         given[name] = (float((pb_g.double() - pr).abs()[ok_g].max()),
                        cuda_ms(torch, run_given, 5),
                        device_ms(torch, run_given, knames, 3))
+
+        def run_32():
+            return fn(nt, pt, kbar32, ts32, mask32, D, masked=True)
+        ms_32 = (cuda_ms(torch, run_32, 200),
+                 device_ms(torch, run_32, knames, 50))
         phase(name, f"{fn.__name__} ok at [64, 1024, 1024] on a random "
               f"non-symmetric cotangent ({int(ok_g.sum())} particles with a "
               f"finite f64 reference): per-particle max|err| / max|ref| "
@@ -1188,8 +1220,12 @@ def main():
               f"kernels alone, plain f32 in chunks of 8) "
               f"({given[name][1]:.4f}, {given[name][2]:.4f}, "
               f"{grads_plain_ms:.4f}), bound {given_bound[0]:.4f} ms "
-              f"({given_bound[1]})")
-    del kbar, pr
+              f"({given_bound[1]})"
+              + ("; bitwise 5b on the same cotangent" if name == "kernel7"
+                 else "")
+              + f"; at [64, 32, 32] with 24 active, ms (wrapper, kernels "
+              f"alone) ({ms_32[0]:.4f}, {ms_32[1]:.4f})")
+    del kbar, pr, outs
 
     # ---- 11. dense_grad: cov_matrix_diff + mvn_logpdf_masked_cvjp -------
     from autogp_tpu_torch import gp_math

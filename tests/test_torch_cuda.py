@@ -26,10 +26,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _prior(dev, P, N, seed):
+def _prior(dev, P, N, seed, depth=None):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        cfg = C.GPConfig()
+        cfg = C.GPConfig() if depth is None else C.GPConfig(max_depth=depth)
     tab = TM.prior_tables(cfg, dev, torch.float32)
     gen = torch.Generator(device=dev).manual_seed(seed)
     nt, pz = TM.sample_tree(gen, P, tab, torch.float32, dev)
@@ -215,19 +215,52 @@ def _scatter_mask(dev, N, seed):
     return (torch.rand(N, generator=gen, device=dev) < 0.75).float()
 
 
+def _card_kernels(fn):
+    """Names of the CUDA kernels one call of fn launched, in launch order,
+    as torch.profiler records them (it may miss a launch, never add one)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+def _assert_own_launches(names, allowed):
+    """The port's kernels among `names` (PyTorch's are in at::native) are
+    at most one launch of each of `allowed`, in that order, with no
+    PyTorch kernel between the first and the last of them."""
+    own = [k for k, n in enumerate(names) if "at::native" not in n]
+    it = iter(allowed)
+    assert all(any(a in names[k] for a in it) for k in own), names
+    if own:
+        assert all("at::native" not in n
+                   for n in names[own[0]:own[-1] + 1]), names
+
+
 @pytest.mark.parametrize("N", [32, 200])
 @pytest.mark.parametrize("masked", [True, False])
 def test_cov_slot_kernel_matches_plain(cuda, N, masked):
     """Kernel 6 on 16 prior trees with a scattered mask, at a tile
     multiple and at a ragged N: normwise relative error <= 1e-5 per
     particle against its plain version (the same float32 formulas), and
-    against the tape kernel's gram."""
+    against the tape kernel's gram. One launch of the kernel per call and
+    no tape built by the wrapper."""
     cfg, nt, pt, noise, ts, _ = _prior(cuda, 16, N, seed=N + 2)
     mask = _scatter_mask(cuda, N, N)
     before = cov.slot_launches
-    K = cov.cov_matrix(nt, pt, noise, ts, mask, cfg.depth_cap, masked=masked)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cov, "build_tape", None)
+        K = cov.cov_matrix(nt, pt, noise, ts, mask, cfg.depth_cap,
+                           masked=masked)
+        names = _card_kernels(lambda: cov.cov_matrix(
+            nt, pt, noise, ts, mask, cfg.depth_cap, masked=masked))
     torch.cuda.synchronize()
-    assert cov.slot_launches == before + 1
+    assert cov.slot_launches == before + 2
+    _assert_own_launches(names, ["cov_slot_kernel"])
     Kp = cov.cov_matrix_plain(nt, pt, noise, ts, mask, cfg.depth_cap, masked)
     m = mask if masked else torch.ones_like(mask)
     Kt = cov.cov_tape(nt, pt, noise, ts, ts, m, m, cfg.depth_cap, gram=True)
@@ -238,25 +271,38 @@ def test_cov_slot_kernel_matches_plain(cuda, N, masked):
 
 @pytest.mark.parametrize("N", [32, 200])
 @pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("depth", [5, 8])
 @pytest.mark.parametrize("tape", [True, False], ids=["tape", "slot"])
-def test_cov_grads_kernels_match_plain(cuda, N, masked, tape):
+def test_cov_grads_kernels_match_plain(cuda, N, masked, depth, tape,
+                                       monkeypatch):
     """Kernels 5b (unfused tape backward) and 7 (per-slot backward) on 16
-    prior trees, a random non-symmetric cotangent and a scattered mask,
-    against the plain version in float64 on the same float32 inputs: per
-    particle max|err| / max|ref| <= 1e-3 for the parameter gradients and
-    1e-5 for the noise gradient (float32 tree values, double adjoints and
-    sums); two launches bitwise equal."""
-    cfg, nt, pt, _, ts, _ = _prior(cuda, 16, N, seed=N + 3)
+    prior trees at depth cap 5 or 8, a random non-symmetric cotangent and
+    a scattered mask, against the plain version in float64 on the same
+    float32 inputs: per particle max|err| / max|ref| <= 1e-3 for the
+    parameter gradients and 1e-5 for the noise gradient (float32 tree
+    values, double adjoints and sums); two launches bitwise equal. Kernel
+    7's wrapper builds no tape and launches at most three kernels per
+    call (the heap-to-tape pass, 5b's body, the reduction), nothing of
+    PyTorch's between them."""
+    cfg, nt, pt, _, ts, _ = _prior(cuda, 16, N, seed=N + 3, depth=depth)
     mask = _scatter_mask(cuda, N, N + 1)
     gen = torch.Generator(device=cuda).manual_seed(N)
     kbar = torch.randn(16, N, N, generator=gen, device=cuda)
     fn = cov_vjp.cov_grads_tape if tape else cov_vjp.cov_grads
     name = "unfused_launches" if tape else "slot_launches"
+    if not tape:
+        monkeypatch.setattr(cov, "build_tape", None)
     before = getattr(cov_vjp, name)
     pb, nb = fn(nt, pt, kbar, ts, mask, cfg.depth_cap, masked=masked)
     pb2, nb2 = fn(nt, pt, kbar, ts, mask, cfg.depth_cap, masked=masked)
     torch.cuda.synchronize()
     assert getattr(cov_vjp, name) == before + 2
+    if not tape:
+        _assert_own_launches(
+            _card_kernels(lambda: fn(nt, pt, kbar, ts, mask, cfg.depth_cap,
+                                     masked=masked)),
+            ["heap_tape_kernel", "cov_tape_bwd_kernel",
+             "reduce_tiles_kernel"])
     assert torch.equal(pb, pb2) and torch.equal(nb, nb2)
     pr, nr = cov_vjp.cov_grads_plain(nt, pt.double(), kbar.double(),
                                      ts.double(), mask.double(),
@@ -522,18 +568,17 @@ def test_cov_grads_tape_any_n(cuda, N):
                   / nr.abs().clamp_min(1.0)).max()) <= 1e-5
 
 
-@pytest.mark.parametrize("depth", [5, 8])
-@pytest.mark.parametrize("N", [1, 33, 200])
-def test_cov_kernel_bitwise_slot_kernel(cuda, depth, N):
-    """Kernel 1's gram (full and lower_only) bitwise kernel 6's at ragged
-    N with a scattered mask, on prior trees and, at depth cap 8, on right
-    combs that fill the eight-deep value stack."""
+def _prior_and_combs(dev, depth, N):
+    """16 prior trees at depth cap `depth` (the first 4, at depth cap 8,
+    replaced by right combs of 7 operators that fill the eight-deep value
+    stack), their transformed parameters and noise, sorted times, and the
+    generator they were drawn from."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         cfg = C.GPConfig(max_depth=depth)
-    tab = TM.prior_tables(cfg, cuda, torch.float32)
-    gen = torch.Generator(device=cuda).manual_seed(depth * N)
-    nt, pz = TM.sample_tree(gen, 16, tab, torch.float32, cuda)
+    tab = TM.prior_tables(cfg, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(depth * N)
+    nt, pz = TM.sample_tree(gen, 16, tab, torch.float32, dev)
     if depth == 8:
         comb = [0]
         while len(comb) < 7:
@@ -545,9 +590,19 @@ def test_cov_kernel_bitwise_slot_kernel(cuda, depth, N):
                 nt[p, 2 * s + 1] = LEAF_CYCLE[(k + p) % 6]
             nt[p, 2 * comb[-1] + 2] = LEAF_CYCLE[p % 6]
     pt = TM.transform_params(nt, pz, tab)
-    noise = TM.transform_noise(torch.randn(16, generator=gen, device=cuda),
+    noise = TM.transform_noise(torch.randn(16, generator=gen, device=dev),
                                cfg)
-    ts = torch.rand(N, generator=gen, device=cuda).sort().values
+    ts = torch.rand(N, generator=gen, device=dev).sort().values
+    return cfg, nt, pt, noise, ts, gen
+
+
+@pytest.mark.parametrize("depth", [5, 8])
+@pytest.mark.parametrize("N", [1, 33, 200])
+def test_cov_kernel_bitwise_slot_kernel(cuda, depth, N):
+    """Kernel 1's gram (full and lower_only) bitwise kernel 6's at ragged
+    N with a scattered mask, on prior trees and, at depth cap 8, on right
+    combs that fill the eight-deep value stack."""
+    cfg, nt, pt, noise, ts, _ = _prior_and_combs(cuda, depth, N)
     mask = _scatter_mask(cuda, N, N + depth)
     K6 = cov.cov_matrix(nt, pt, noise, ts, mask, cfg.depth_cap, masked=True)
     K1 = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, cfg.depth_cap,
@@ -557,6 +612,29 @@ def test_cov_kernel_bitwise_slot_kernel(cuda, depth, N):
     torch.cuda.synchronize()
     assert torch.equal(K1, K6)
     assert torch.equal(K1l, torch.tril(K6))
+
+
+@pytest.mark.parametrize("depth", [5, 8])
+@pytest.mark.parametrize("N", [1, 33, 200, 1024])
+@pytest.mark.parametrize("masked", [True, False])
+def test_slot_bwd_bitwise_unfused_tape_bwd(cuda, depth, N, masked):
+    """Kernel 7 (cov_grads: the heaps compacted into tapes on the card,
+    then 5b's body) torch.equal to 5b (cov_grads_tape, on build_tape's
+    tapes) on pbar and nbar, on a random non-symmetric cotangent with a
+    scattered mask, masked or not, at N below, at and above one tile and
+    at 1024, on prior trees and, at depth cap 8, on right combs (tapes of
+    15 positions in a 255-slot heap)."""
+    cfg, nt, pt, _, ts, gen = _prior_and_combs(cuda, depth, N)
+    mask = _scatter_mask(cuda, N, N + depth + 1)
+    kbar = torch.randn(16, N, N, generator=gen, device=cuda)
+    pb7, nb7 = cov_vjp.cov_grads(nt, pt, kbar, ts, mask, cfg.depth_cap,
+                                 masked=masked)
+    pb5, nb5 = cov_vjp.cov_grads_tape(nt, pt, kbar, ts, mask, cfg.depth_cap,
+                                      masked=masked)
+    torch.cuda.synchronize()
+    assert torch.equal(pb7, pb5) and torch.equal(nb7, nb5)
+    if not masked or bool(mask.any()):   # else the cotangent is all 0
+        assert bool((pb7 != 0).any())
 
 
 @pytest.mark.parametrize("N1,N2", [(37, 70), (70, 37), (64, 72), (5, 128)])

@@ -2,7 +2,8 @@
 
 The kernel runs only on the card; what its wrapper and its walk must get
 right is held here against plain counterparts: the per-particle block
-count that sizes the partial scratch (`cov_vjp.bwd_chunks`), the tiles
+count that sizes the partial scratch (`cov_vjp.bwd_chunks`; with the
+per-slot backward's tapes, `cov_vjp.given_scratch`), the tiles
 each block visits (`cov_vjp.tile_runs`: the active lower tiles of the
 fused entries, every tile of the unfused one), the threads a block runs
 for its tape (`cov_vjp.bwd_threads`, the shared-memory sizing by tape
@@ -100,6 +101,24 @@ def test_tile_runs_cover_the_cotangent(fused, N, n_act, scatter, P):
     assert need <= set(seen)
     if n_act == 0 and not scatter:
         assert seen == []
+
+
+@pytest.mark.parametrize("P,N,depth", [
+    (1, 1, 5), (16, 33, 5), (64, 32, 5), (64, 1024, 5), (128, 200, 5),
+    (400, 1024, 5), (16, 1024, 8), (64, 200, 8)])
+def test_given_scratch_fits_the_runs(P, N, depth):
+    """The scratch of the given-cotangent entries (kernels 5b and 7, one
+    body): a float64 partial row of 3M + 1 sums for each block of the
+    unfused walk, so a particle's partials are its runs of tiles, and
+    kernel 7's tapes, build_tape's slot, type, lpos and rpos [P, M] and
+    the lengths [P] in one int32 buffer."""
+    M = (1 << depth) - 1
+    part, tapes = cov_vjp.given_scratch(P, M, N)
+    runs = cov_vjp.tile_runs(torch.ones(N, dtype=torch.float64), P, False)
+    assert part == (P, len(runs), 3 * M + 1)
+    assert part[1] <= (-(-N // TILE)) ** 2
+    nt = _heaps(depth, [1 + p % 4 for p in range(P)])
+    assert tapes == (sum(t.numel() for t in cov.build_tape(nt, depth)),)
 
 
 def test_terms_per_type_are_the_parameters():
