@@ -8,24 +8,30 @@ to its JAX counterpart on the CPU in float64.
 Ported so far: SMC with data annealing, parameter and noise HMC included
 (prior, moves, reweight/resample, the batched LML and its gradient on both
 of the reference's routes, the predict family, to_dict/from_dict), the
-MCMC-only fits, the streaming API (add_data, remove_data, maybe_resample,
-fit_smc's callback) and the online forecasting script
+MCMC-only fits, the greedy AIC search and the hybrid greedy/MCMC chain
+(fit_greedy, fit_greedy_mcmc), the decomposition API (decompose,
+extract_kernel, split_kernel_sop, gp_model_from_kernels, predict_sum,
+predict_mvn_sum), the streaming API (add_data, remove_data,
+maybe_resample, fit_smc's callback) and the online forecasting script
 (`python3 -m autogp_tpu_torch.scripts.online`), on hand-written CUDA
 kernels: the covariance assembly, tape-driven and per-slot (ops/cov.py),
 the panel Cholesky (ops/chol.py), the K^-1 substitution (ops/kinv.py) and
 the assembly backwards (ops/cov_vjp.py). Entry points run on the card
-unless the caller passes device="cpu". This package imports neither jax
-nor autogp_tpu.
+unless the caller passes device="cpu". Not ported yet: depth annealing and
+the mesh. This package imports neither jax nor autogp_tpu.
 """
 
 from autogp_tpu_torch.config import GPConfig  # noqa: F401
-from autogp_tpu_torch.transforms import LinearTransform  # noqa: F401
+from autogp_tpu_torch.transforms import (  # noqa: F401
+    LinearTransform, LogTransform)
 from autogp_tpu_torch import kernels as GP  # noqa: F401
 from autogp_tpu_torch import schedule as Schedule  # noqa: F401
 from autogp_tpu_torch import callbacks as Callbacks  # noqa: F401
 from autogp_tpu_torch.api import (  # noqa: F401
-    GPModel, add_data, covariance_kernels, effective_sample_size, fit_mcmc,
-    fit_smc, from_dict, log_marginal_likelihood_estimate, maybe_resample,
-    mcmc_parameters, mcmc_structure, observation_noise_variances,
-    particle_weights, particles_from_numpy, predict, predict_mvn,
-    predict_proba, predict_quantile, remove_data, seed, to_dict)
+    GPModel, add_data, covariance_kernels, decompose, effective_sample_size,
+    extract_kernel, fit_greedy, fit_greedy_mcmc, fit_mcmc, fit_smc,
+    from_dict, gp_model_from_kernels, log_marginal_likelihood_estimate,
+    maybe_resample, mcmc_parameters, mcmc_structure, num_particles,
+    observation_noise_variances, particle_weights, particles_from_numpy,
+    predict, predict_mvn, predict_mvn_sum, predict_proba, predict_quantile,
+    predict_sum, remove_data, seed, split_kernel_sop, to_dict)

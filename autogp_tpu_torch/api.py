@@ -13,8 +13,13 @@ the per-particle log density of held-out values; `to_dict` / `from_dict`
 use the dict format of autogp_tpu.api.to_dict (:916-993), so a model
 fitted by the JAX package can be carried over and back.
 
-Not ported yet: greedy search, predict_sum, decompose and friends, depth
-annealing and the mesh.
+`fit_greedy` and `fit_greedy_mcmc` are the greedy AIC engines
+(inference/greedy.py); `decompose`, `extract_kernel`, `split_kernel_sop`
+and `gp_model_from_kernels` rebuild models from edited kernels, and
+`predict_mvn_sum` / `predict_sum` split a prediction into its
+sum-of-products components (GP-sum posterior, kernel 1 on the components).
+
+Not ported yet: depth annealing and the mesh.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import datetime as _dt
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import pandas as pd
@@ -218,6 +223,10 @@ def log_marginal_likelihood_estimate(model: GPModel):
     return model.log_marginal_likelihood_estimate()
 
 
+def num_particles(model: GPModel):
+    return model.num_particles
+
+
 def covariance_kernels(model: GPModel, reparameterize: bool = True):
     return model.covariance_kernels(reparameterize=reparameterize)
 
@@ -247,14 +256,19 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
             adaptive_resampling: bool = True,
             adaptive_rejuvenation: bool = False, hmc_config=None,
             verbose: bool = False, check: bool = False,
-            callback_fn: Optional[Callable] = None):
+            callback_fn: Optional[Callable] = None,
+            hmc_compact: bool = True):
     """SMC structure learning with data annealing (api.jl:212-249). After
     every MH step the particles that accepted it get n_hmc sweeps of
     parameter and noise HMC (`hmc_config`: L_param, eps_param, L_noise,
     eps_noise, n_exit; n_exit defaults to 1). Per-round totals (MH and
     HMC acceptances, HMC sweeps) are left in `model.round_stats`.
     `callback_fn` (see callbacks.make_smc_callback) is called with
-    keywords at step 0 and after every round."""
+    keywords at step 0 and after every round. `hmc_compact` (the
+    reference's option, autogp_tpu/api.py:283) runs each HMC sweep on the
+    live particles only; False runs it on all P, the live ones kept (the
+    reference's chunk width P, `_hmc_chunk_width(P, False)`). Both give
+    the same fit."""
     n = len(model.ds)
     model.round_stats = []
     perm = _GLOBAL["rng"].permutation(n) if shuffle else np.arange(n)
@@ -266,7 +280,8 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
         hmc_cfg=_hmc_config(hmc_config, default_n_exit=1), permutation=perm,
         adaptive_resampling=adaptive_resampling,
         adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
-        check=check, round_stats=model.round_stats, callback_fn=callback_fn)
+        check=check, round_stats=model.round_stats, callback_fn=callback_fn,
+        hmc_compact=hmc_compact)
     return model
 
 
@@ -482,6 +497,280 @@ def predict_proba(model: GPModel, ds, y) -> pd.DataFrame:
         logps = np.array([c.logpdf(y) for c in dist.components])
     return pd.DataFrame({"particle": np.arange(1, n + 1),
                          "weight": model.particle_weights(), "logp": logps})
+
+
+# ---------------------------------------------------------------------------
+# decomposition / kernel surgery (api.jl:731-850; autogp_tpu/api.py:662-738)
+# ---------------------------------------------------------------------------
+
+def _particles_from_kernels(kernels: List[GP.Node], noise_zs, model: GPModel,
+                            config: GPConfig, log_weights=None
+                            ) -> smc.Particles:
+    """node_to_trace equivalent: a particle batch on the model's device
+    from symbolic kernels with given whitened noises, LMLs computed on the
+    model's data (inference_utils.jl:257-284). A Constant(0) encodes as
+    z = -inf, which the transforms map to exactly 0."""
+    P = len(kernels)
+    Mn = config.max_nodes
+    nts = np.zeros((P, Mn), np.int64)
+    pzs = np.zeros((P, Mn, C.MAX_PARAMS), np.float64)
+    with np.errstate(divide="ignore"):
+        for i, k in enumerate(kernels):
+            nts[i], pzs[i] = T.node_to_tensor(k, config)
+    tables = M.prior_tables(config, model.device, model.dtype)
+    lw = np.zeros(P) if log_weights is None else np.asarray(log_weights)
+    parts = particles_from_numpy(
+        nts, pzs, np.asarray(noise_zs, np.float64), lw, np.zeros(P),
+        np.float64(0.0), np.arange(P), device=model.device,
+        dtype=model.dtype)
+    lml = smc.lml_all(parts, model._dataset(), config, tables)
+    return parts.replace(lml=lml, log_weights=(
+        lml.clone() if log_weights is None else parts.log_weights))
+
+
+def gp_model_from_kernels(model: GPModel, kernels: List[GP.Node],
+                          config: Optional[GPConfig] = None) -> GPModel:
+    """GPModel(model, kernels) rebuild (api.jl:833-850): same data,
+    transforms and device, particles forced to the given kernels, weights
+    copied; `config` defaults to the model's."""
+    assert len(kernels) == model.num_particles
+    config = model.config if config is None else config
+    p = model.particles
+    particles = _particles_from_kernels(
+        kernels, p.noise_z.cpu().numpy().astype(np.float64), model, config,
+        log_weights=p.log_weights.cpu().numpy().astype(np.float64))
+    return GPModel._from_state(particles, config, model.ds, model.y,
+                               model.ds_transform, model.y_transform)
+
+
+def decompose(model: GPModel) -> List[GPModel]:
+    """Unroll each particle's kernel into a GPModel of its fragments, one
+    particle per fragment, equal weights, near-zero observation noise
+    (api.jl:731-771). Each lives on the parent's device with its
+    transforms."""
+    kernels = model.covariance_kernels(reparameterize=False)
+    cfg = model.config.replace(noise=1e-10)
+    nz = M.untransform_param("noise", 1e-10, cfg)
+    out = []
+    for k in kernels:
+        frags = GP.unroll(k)
+        sub = GPModel._from_state(
+            _particles_from_kernels(frags, np.full(len(frags), nz), model,
+                                    cfg, log_weights=np.zeros(len(frags))),
+            cfg, model.ds, model.y, model.ds_transform, model.y_transform)
+        out.append(sub)
+    return out
+
+
+def extract_kernel(model: GPModel, leaf_type: Type[GP.LeafNode],
+                   retain: bool = True) -> GPModel:
+    """Keep only leaves of `leaf_type` (or, with retain=False, the others)
+    in every particle (api.jl:797-802)."""
+    kernels = model.covariance_kernels(reparameterize=False)
+    new = [GP.extract_kernel(k, leaf_type, retain=retain) for k in kernels]
+    return gp_model_from_kernels(model, new)
+
+
+def split_kernel_sop(model: GPModel, leaf_type: Type[GP.LeafNode]
+                     ) -> Tuple[GPModel, GPModel]:
+    """Sum-of-products split of every particle by `leaf_type`
+    (api.jl:824-831): (the terms with such a leaf, the rest).
+
+    A split can be deeper than the model's depth cap (each product of sums
+    adds levels), where the reference's encoding raises. Then both sides'
+    sums are balanced (the same covariance, fewer levels) and the two
+    models take the model's config with its depth cap raised to hold them
+    (max_depth, or static_max_depth where max_depth is unbounded): fit for
+    prediction, while the fitting kernels take depth caps up to 8."""
+    kernels = model.covariance_kernels(reparameterize=False)
+    splits = [GP.split_kernel_sop(k, leaf_type) for k in kernels]
+    sides = [[s[i] for s in splits] for i in (0, 1)]
+    config = model.config
+    depth = max(k.depth for side in sides for k in side)
+    if depth > config.depth_cap:
+        sides = [[_balance_sums(k) for k in side] for side in sides]
+        depth = max(k.depth for side in sides for k in side)
+        field = "max_depth" if config.max_depth > 0 else "static_max_depth"
+        config = config.replace(**{field: max(depth, config.depth_cap)})
+    return (gp_model_from_kernels(model, sides[0], config),
+            gp_model_from_kernels(model, sides[1], config))
+
+
+# ---------------------------------------------------------------------------
+# predict_sum / predict_mvn_sum (api.jl:898-1034; autogp_tpu/api.py:741-888)
+# ---------------------------------------------------------------------------
+
+def _balance_sums(node: GP.Node) -> GP.Node:
+    """Rebuild Plus chains as balanced binary trees (equal covariance:
+    Plus is associative; GP.jl:358-400). split_kernel_sop emits left-heavy
+    sum chains whose heap depth would explode the tensor encoding; the
+    balanced form needs only ceil(log2(#terms)) extra levels."""
+    if isinstance(node, GP.Plus):
+        terms = []
+
+        def flat(k):
+            if isinstance(k, GP.Plus):
+                flat(k.left)
+                flat(k.right)
+            else:
+                terms.append(_balance_sums(k))
+
+        flat(node)
+        while len(terms) > 1:
+            terms = [terms[i] + terms[i + 1] if i + 1 < len(terms)
+                     else terms[i] for i in range(0, len(terms), 2)]
+        return terms[0]
+    if isinstance(node, GP.Times):
+        return GP.Times(_balance_sums(node.left), _balance_sums(node.right))
+    if isinstance(node, GP.ChangePoint):
+        return GP.ChangePoint(_balance_sums(node.left),
+                              _balance_sums(node.right), node.location,
+                              node.scale)
+    return node
+
+
+def sum_components(model: GPModel, leaf_type: Type[GP.LeafNode]
+                   ) -> List[List[GP.Node]]:
+    """Per particle, the two balanced components of its sum-of-products
+    split by `leaf_type`: what predict_mvn_sum conditions on."""
+    return [[_balance_sums(c) for c in GP.split_kernel_sop(k, leaf_type)]
+            for k in model.covariance_kernels(reparameterize=False)]
+
+
+def sum_component_heaps(model: GPModel, ds, leaf_type: Type[GP.LeafNode]):
+    """predict_mvn_sum's input to kernel 1: particle i's two components
+    (`sum_components`) as heaps 2i and 2i + 1, encoded at the depth of the
+    deepest component (Constant(0) pads as z = -inf), on the model's
+    device and dtype. Returns (node_type [2P, M], transformed params
+    [2P, M, 3], ds_train + ds numeric [n + p], depth cap)."""
+    dev, dt = model.device, model.dtype
+    splits = sum_components(model, leaf_type)
+    enc_depth = max(max(c.depth for c in s) for s in splits)
+    enc_cfg = model.config.replace(max_depth=int(max(enc_depth, 1)))
+    Mn = enc_cfg.max_nodes
+    nts = np.zeros((2 * len(splits), Mn), np.int64)
+    pzs = np.zeros((2 * len(splits), Mn, C.MAX_PARAMS), np.float64)
+    with np.errstate(divide="ignore"):  # Constant(0) pads -> z = -inf
+        for i, s in enumerate(splits):
+            for j, comp in enumerate(s):
+                nts[2 * i + j], pzs[2 * i + j] = T.node_to_tensor(comp,
+                                                                  enc_cfg)
+    nt_t = torch.as_tensor(nts, device=dev)
+    pt = M.transform_params(nt_t, torch.as_tensor(pzs, dtype=dt, device=dev),
+                            M.prior_tables(enc_cfg, dev, dt))
+    z = torch.as_tensor(np.concatenate([model._ds_numeric(),
+                                        model._ds_numeric(ds)]),
+                        dtype=dt, device=dev)
+    return nt_t, pt, z, enc_cfg.depth_cap
+
+
+def predict_mvn_sum(model: GPModel, ds, leaf_type: Type[GP.LeafNode],
+                    noise_pred: Optional[float] = None):
+    """Joint posterior over [F_T, F_nT, X] at ds per particle, through the
+    GP-sum system (api.jl:978-1034). Returns (MixtureMvNormal over 3p
+    dims, indexes {"F": [range of F_T, range of F_nT], "Y": range of X}).
+
+    The components are encoded back into heaps (`sum_component_heaps`)
+    and their covariance blocks over ds_train + ds come from kernel 1 in
+    one launch (on the card, components deeper than 8 levels raise). The
+    joint conditioning, `gp_math.infer_gp_sum_from_blocks`, runs on the
+    model's device in float64 whatever the model's dtype, with the jitters
+    of the blocks' dtype (`gp_math.sum_gp_jitters`): X(T*) = F_T + F_nT + noise makes the
+    joint singular up to its jitter, and in float32 the rounding of its
+    factor broke mean(X) = mean(F_T) + mean(F_nT) by up to 4.2e-4
+    normwise on config 4's fitted model (NVIDIA H100,
+    scripts/gp_sum_jitter.py)."""
+    from autogp_tpu_torch.ops import cov
+    ts = model._ds_numeric()
+    xs = model._y_numeric()
+    n, p = len(ts), len(model._ds_numeric(ds))
+    P = model.num_particles
+    dev, dt = model.device, model.dtype
+    noises = np.asarray(
+        model.observation_noise_variances(reparameterize=False), np.float64)
+    m = 2  # split_kernel_sop always yields (leaf part, remainder)
+    nt_t, pt, z, depth_cap = sum_component_heaps(model, ds, leaf_type)
+    ones = torch.ones_like(z)
+    K = cov.cov_tape(nt_t, pt, torch.zeros(P * m, dtype=dt, device=dev), z,
+                     z, ones, ones, depth_cap, gram=False)
+    K = K.reshape(P, m, n + p, n + p).to(torch.float64)
+    noise_preds = (noises if noise_pred is None
+                   else np.full(P, noise_pred, np.float64))
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+    mu_all, cov_all = gp_math.infer_gp_sum_from_blocks(
+        K[:, :, :n, :n], K[:, :, :n, n:], K[:, :, n:, n:], f64(noises),
+        f64(xs), f64(np.ones(n)), noise_pred=f64(noise_preds),
+        jitter=gp_math.sum_gp_jitters(dt))
+    mu_all = mu_all.cpu().numpy().astype(np.float64)
+    cov_all = cov_all.cpu().numpy().astype(np.float64)
+
+    fidx = [np.arange(j * p, (j + 1) * p) for j in range(m)]
+    xidx = np.arange(m * p, (m + 1) * p)
+    indexes = {"F": fidx, "Y": xidx}
+    comps = []
+    for i in range(P):
+        mu, cv = model.y_transform.unapply_mean_var(mu_all[i], cov_all[i])
+        # Correct the double-counted linear offset (api.jl:1013-1020).
+        mu[fidx[0]] += (model.y_transform.intercept
+                        / model.y_transform.slope)
+        comps.append(MvNormal(mu, cv))
+    return MixtureMvNormal(comps, model.particle_weights()), indexes
+
+
+def predict_sum(model: GPModel, ds, leaf_type: Type[GP.LeafNode],
+                quantiles: Sequence[float] = (),
+                noise_pred: Optional[float] = None) -> pd.DataFrame:
+    """predict() split by SOP components (api.jl:898-935): component 0 is
+    the overall prediction, 1 the `leaf_type` part, 2 the remainder."""
+    quantiles = list(quantiles)
+    mixture, indexes = predict_mvn_sum(model, ds, leaf_type,
+                                       noise_pred=noise_pred)
+    weights = mixture.weights
+    frames = []
+    nq = len(ds)
+    for particle in range(model.num_particles):
+        mvn = mixture.components[particle]
+        bounds = mvn.quantile(quantiles) if quantiles else None
+        for comp, idx in enumerate([indexes["Y"]] + list(indexes["F"])):
+            rec = {
+                "ds": np.asarray(ds),
+                "y_mean": mvn.mean[idx],
+                "component": np.full(nq, comp),
+                "particle": np.full(nq, particle + 1),
+                "weight": np.full(nq, weights[particle]),
+            }
+            for j, q in enumerate(quantiles):
+                rec[f"y_{q}"] = bounds[idx, j]
+            frames.append(pd.DataFrame(rec))
+    return pd.concat(frames, ignore_index=True)
+
+
+# ---------------------------------------------------------------------------
+# fit_greedy / fit_greedy_mcmc (api.jl:327-378; autogp_tpu/api.py:891-913)
+# ---------------------------------------------------------------------------
+
+def fit_greedy(model: GPModel, max_depth: Optional[int] = None,
+               verbose: bool = False, check: bool = False,
+               callback_fn: Optional[Callable] = None):
+    """Greedy AIC structure search (inference/greedy.fit_greedy)."""
+    from autogp_tpu_torch.inference import greedy
+    return greedy.fit_greedy(model, max_depth=max_depth, verbose=verbose,
+                             check=check, callback_fn=callback_fn)
+
+
+def fit_greedy_mcmc(model: GPModel, n_mcmc: int, n_parallel: int = 1,
+                    biased: bool = False, verbose: bool = False,
+                    check: bool = False,
+                    callback_fn: Optional[Callable] = None):
+    """Hybrid greedy/MCMC chain ("Algorithm 0", Greedy.jl:59-130): n_mcmc
+    AIC-monotone steps, each taking the best of `n_parallel` independent
+    subtree-replace + MAP-optimize proposals."""
+    from autogp_tpu_torch.inference import greedy
+    return greedy.fit_greedy_mcmc(model, n_mcmc, n_parallel=n_parallel,
+                                  biased=biased, verbose=verbose,
+                                  check=check, callback_fn=callback_fn)
 
 
 # ---------------------------------------------------------------------------

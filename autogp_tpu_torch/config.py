@@ -73,6 +73,10 @@ SUM_GP_JITTER = 1e-8
 # reference's 1e-8 by up to ~1e-5 absolute on the diagonal there (float64
 # matches the reference exactly; see docs/api.md "Numerical deviations").
 SUM_GP_JITTER_F32 = 1e-5
+# The jitters the port's GP-sum joint tries in turn on float32 blocks, each
+# particle keeping the first that factorizes (gp_math.sum_gp_jitters):
+# SUM_GP_JITTER up by tens to SUM_GP_JITTER_F32.
+SUM_GP_JITTERS_F32 = (1e-8, 1e-7, 1e-6, 1e-5)
 
 
 def _normalize(x) -> Tuple[float, ...]:

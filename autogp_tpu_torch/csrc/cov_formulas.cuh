@@ -13,8 +13,13 @@
 //   plain PyTorch version (gp_math.eval_cov), whose values the LML is held
 //   to;
 // - `ref_leaf_value` / `ref_op_value`, used by the backward kernels' forward
-//   sweep, follow the reference's backward kernels, whose derivative
-//   formulas recover exponents from the stored value.
+//   sweep, follow the reference's backward kernels. Their derivative
+//   formulas (`ref_leaf_grad`) recover exponents from the stored value,
+//   except GammaExponential's and Periodic's, which recompute them, and
+//   Periodic's argument is reduced in double first (`periodic_arg`): the
+//   gradient is a sum of terms that cancel, and those recoveries and the
+//   argument's float32 rounding put errors of 1e-5 to 2e-4 of the terms'
+//   size into it on config 3's candidates.
 //
 // Build without --use_fast_math: expf/sinf/logf must stay accurate to about
 // one ulp.
@@ -120,6 +125,19 @@ struct Elem {
       : t1(a), t2(b), dt(a - b), adt(fabsf(a - b)) {}
 };
 
+// Periodic's argument pi |t1 - t2| / per, reduced by a multiple of pi to
+// [-pi/2, pi/2] in double: its sin^2 and sin(2 .) are the argument's. In
+// float32 the product's rounding is relative, ~4e-6 rad at the 37 rad of a
+// 12-step season over 144 points, and the period's gradient, a sum of
+// terms in sin(2 .) that cancel, inherits it; reduced first, the float32
+// argument is off by ~1e-7 rad whatever the period.
+__device__ __forceinline__ float periodic_arg(float t1, float t2,
+                                              float per) {
+  const double pi = 3.14159265358979323846;
+  const double th = pi * fabs((double)t1 - (double)t2) / (double)per;
+  return (float)fma(-rint(th * (1.0 / pi)), pi, th);
+}
+
 __device__ __forceinline__ float ref_leaf_value(int t, const float* pr,
                                                 const Elem& e) {
   switch (t) {
@@ -143,8 +161,7 @@ __device__ __forceinline__ float ref_leaf_value(int t, const float* pr,
     }
     case PERIODIC: {
       const float l = pr[0];
-      const float freq = kPi / pr[1];
-      const float sn = sinf(freq * e.adt);
+      const float sn = sinf(periodic_arg(e.t1, e.t2, pr[1]));
       return pr[2] * expf((-2.0f / (l * l)) * sn * sn);
     }
     default:
@@ -206,8 +223,8 @@ __device__ __forceinline__ void ref_op_adjoint(int t, const float* pr,
 }
 
 // Gradient terms of a leaf with stored value v and adjoint a, through
-// acc(index, term). Exponential-family leaves recover their exponent from
-// v with a clamped log instead of recomputing it.
+// acc(index, term). GammaExponential and Periodic recompute their
+// exponents; SquaredExponential's needs none.
 template <class Acc>
 __device__ __forceinline__ void ref_leaf_grad(int t, const float* pr, float v,
                                               double a, const Elem& e,
@@ -234,22 +251,25 @@ __device__ __forceinline__ void ref_leaf_grad(int t, const float* pr, float v,
       break;
     }
     case GAMMA_EXPONENTIAL: {
+      // The exponent u = (|dt| / l)^gamma recomputed, not recovered from
+      // v as -log(v / amp): near the diagonal, where the cotangent is
+      // largest, u is small and the recovery keeps only ~6e-8 / u of it.
       const float l = pr[0], ga = pr[1], amp = pr[2];
-      const float e_safe = fmaxf(v / amp, 1e-38f);
-      const float u = (adt == 0.0f) ? 0.0f : -logf(e_safe);
       const float safe = fmaxf((adt == 0.0f) ? 1.0f : adt / l, 1e-30f);
       const float logs = (adt == 0.0f) ? 0.0f : logf(safe);
+      const float u = (adt == 0.0f) ? 0.0f : expf(ga * logs);
       acc(base, a * (double)(v * ga * u / l));
       acc(base + 1, a * (double)(v * (-u) * logs));
       acc(base + 2, a * (double)(v / amp));
       break;
     }
     case PERIODIC: {
+      // sin^2 recomputed from the reduced argument, for the same reason.
       const float l = pr[0], per = pr[1], amp = pr[2];
-      const float e_safe = fmaxf(v / amp, 1e-38f);
-      const float sn2 = (-0.5f * l * l) * logf(e_safe);
-      const float freq = kPi / per;
-      const float sncs = 0.5f * sinf(2.0f * freq * adt);
+      float sn, cs;
+      sincosf(periodic_arg(t1, t2, per), &sn, &cs);
+      const float sn2 = sn * sn;
+      const float sncs = sn * cs;
       acc(base, a * (double)(v * (4.0f * sn2) / (l * l * l)));
       acc(base + 1, a * (double)(v * (4.0f / (l * l)) * sncs
                                  * (kPi * adt / (per * per))));

@@ -25,9 +25,12 @@
 // ChangePoint's d K_ij / d theta, times its adjoint, into theta's slot;
 // kbar on the diagonal goes to the noise. out[p] = [pbar (M x 3), nbar].
 // The formulas are the reference's guarded ones (cov_pallas_vjp.py:
-// 313-523): GammaExponential and Periodic recover their exponent from the
-// stored value with a clamped log, ChangePoint is a sigmoid, and pi / p is
-// a true division (cov_formulas.cuh).
+// 313-523): ChangePoint is a sigmoid, and pi / p is a true division
+// (cov_formulas.cuh). Where the reference recovers GammaExponential's and
+// Periodic's exponents from the stored value with a clamped log, they are
+// recomputed, and Periodic's argument is reduced in double: the gradient's
+// terms cancel, and those roundings were 1e-5 to 2e-4 of the terms' size
+// on config 3's candidates.
 //
 // The in-tape L^-1 entry takes V = L^-1 [P, N, N] (exact zeros above the
 // diagonal, kinv.cu's autogp_linv_beta) in place of K^-1. Before the

@@ -20,8 +20,9 @@ closed-form cotangent of the MVN log density (autogp_tpu/gp_math.py:
 402-473), which the plain versions of the kinv and tape-backward kernels
 use; `mvn_logpdf_masked_cvjp`, the MVN log density as an autograd Function
 with that cotangent as its backward (the dense gradient route of
-`model.lml`); and the joint-Cholesky posteriors `posterior_mvn_masked` and
-`posterior_logpdf_masked`.
+`model.lml`); the joint-Cholesky posteriors `posterior_mvn_masked` and
+`posterior_logpdf_masked`; and the GP-sum posterior of the decomposition
+API, `infer_gp_sum_from_blocks`, with `normal_quantile`.
 """
 
 from __future__ import annotations
@@ -421,3 +422,94 @@ def posterior_logpdf_masked(node_type, params, noise, ts, xs, mask, ts_pred,
                                         mask, ts_pred, depth_cap,
                                         noise_pred=noise_pred)
     return mvn_logpdf(mu, cov_pred, y_pred)
+
+
+# ---------------------------------------------------------------------------
+# Joint posterior over latent GP-sum components (GP.jl:904-993;
+# autogp_tpu/gp_math.py:606-672)
+# ---------------------------------------------------------------------------
+
+def sum_gp_jitters(dtype) -> Tuple[float, ...]:
+    """The jitters the GP-sum joint's a-block tries, in turn, for blocks
+    computed in `dtype`. Float64: SUM_GP_JITTER alone, the reference's
+    (autogp_tpu/gp_math.py:646-648). Float32: SUM_GP_JITTERS_F32, from
+    SUM_GP_JITTER up by tens to SUM_GP_JITTER_F32, the reference's float32
+    value: the blocks' rounding leaves the joint's Schur complement
+    negative by ~1e-7, and the jitter is added to every posterior
+    variance, so the smallest one that factorizes is kept (on config 4's fitted particles 1e-7 or 1e-6,
+    where 1e-5 moved a posterior covariance of scale 3.4e-4 by 2.9e-2;
+    NVIDIA H100, scripts/gp_sum_jitter.py)."""
+    if dtype == torch.float64:
+        return (C.SUM_GP_JITTER,)
+    return C.SUM_GP_JITTERS_F32
+
+
+def infer_gp_sum_from_blocks(Ktt, Ktp, Kpp, noise, xs, mask,
+                             noise_pred=None, jitter=None):
+    """Joint posterior over [F_1(T*), ..., F_m(T*), X(T*)] | X(T) = x, per
+    particle.
+
+    Ktt [P, m, n, n], Ktp [P, m, n, p], Kpp [P, m, p, p]: the covariance
+    blocks of each particle's m components; noise [P] and noise_pred [P]
+    (default noise); xs, mask [n] (mask pads the training block). Returns
+    (mu [P, (m+1)p], cov [P, (m+1)p, (m+1)p]).
+
+    Joint-Cholesky form only: with J = [[Sbb, Sab^T], [Sab, Saa]] and
+    chol(J) = [[L11, 0], [L21, L22]], mu = L21 L11^-1 x and cov = L22
+    L22^T, positive semi-definite by construction (the explicit Saa -
+    Sab Sbb^-1 Sab^T goes indefinite in float32). A jitter goes on Saa
+    first, since X(T*) = sum F_i(T*) + noise makes the joint singular:
+    `jitter` is a sequence tried in turn, each particle keeping the first
+    that factorizes (default `sum_gp_jitters` of the blocks' dtype; pass
+    the blocks' own when they were computed in float32 and are
+    conditioned in float64). Where none does, NaN, as the reference's
+    failed factorization gives."""
+    P, m, n, p = Ktp.shape
+    dt, dev = Ktt.dtype, Ktt.device
+    if noise_pred is None:
+        noise_pred = noise
+    Ktt = 0.5 * (Ktt + Ktt.mT)
+    Kpp = 0.5 * (Kpp + Kpp.mT)
+    S_tt, S_tp, S_pp = Ktt.sum(dim=1), Ktp.sum(dim=1), Kpp.sum(dim=1)
+    d_a = m * p + p
+    eye_p = torch.eye(p, dtype=dt, device=dev)
+    Saa = torch.zeros((P, d_a, d_a), dtype=dt, device=dev)
+    for i in range(m):
+        sl = slice(i * p, (i + 1) * p)
+        Saa[:, sl, sl] = Kpp[:, i]
+        Saa[:, sl, m * p:] = Kpp[:, i]
+        Saa[:, m * p:, sl] = Kpp[:, i].mT
+    Saa[:, m * p:, m * p:] = S_pp + noise_pred[:, None, None] * eye_p
+    # Sigma_ab: the a-block's covariance with X(T), padding masked out.
+    Sab = torch.cat([Ktp.mT.reshape(P, m * p, n), S_tp.mT], dim=1)
+    Sab = Sab * mask[None, None, :]
+    Sbb = masked_gram(
+        S_tt + noise[:, None, None] * torch.eye(n, dtype=dt, device=dev),
+        mask)
+    Saa = 0.5 * (Saa + Saa.mT)
+    eye_a = torch.eye(d_a, dtype=dt, device=dev)
+    L = todo = None
+    for jit in (sum_gp_jitters(dt) if jitter is None else jitter):
+        J = torch.cat([torch.cat([Sbb, Sab.mT], dim=2),
+                       torch.cat([Sab, Saa + jit * eye_a], dim=2)], dim=1)
+        Lj, info = torch.linalg.cholesky_ex(J)
+        if L is None:
+            L, todo = Lj, info > 0
+        else:
+            L = torch.where(todo[:, None, None], Lj, L)
+            todo = todo & (info > 0)
+        if not bool(todo.any()):
+            break
+    L = torch.where(todo[:, None, None], float("nan"), L)
+    alpha = torch.linalg.solve_triangular(
+        L[:, :n, :n], (xs * mask).expand(P, n)[..., None], upper=False)
+    mu = torch.matmul(L[:, n:, :n], alpha)[..., 0]
+    L22 = L[:, n:, n:]
+    cov = torch.matmul(L22, L22.mT)
+    return mu, 0.5 * (cov + cov.mT)
+
+
+def normal_quantile(q, mu, sigma):
+    """Marginal Gaussian quantiles (GP.jl:1006-1012), numpy."""
+    from scipy.stats import norm
+    return norm.ppf(q, loc=mu, scale=sigma)

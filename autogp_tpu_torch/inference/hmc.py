@@ -155,16 +155,19 @@ def hmc_noise_step(gen, node_type, params_z, noise_z, lml_cached, data,
 
 def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
                           data, cfg: C.GPConfig, tables, n_hmc: int,
-                          hmc: HMCConfig, infer_noise: bool, enabled=None):
+                          hmc: HMCConfig, infer_noise: bool, enabled=None,
+                          compact: bool = True):
     """Up to n_hmc sweeps of (parameter HMC [+ noise HMC]) per particle,
     each stopping after `n_exit` consecutive parameter rejections
     (hmc.py:159-211). `enabled` [P] bool restricts the sweeps to some
     particles (the MH-accepted ones; default all). Returns (params_z,
     noise_z, lml, n_accept [P], n_sweeps [P]).
 
-    Each sweep gathers the live particles, runs both steps on them only
-    (their draws are rows of P-wide draws) and scatters the results back;
-    the loop ends when none is live."""
+    With `compact`, each sweep gathers the live particles, runs both steps
+    on them only (their draws are rows of P-wide draws) and scatters the
+    results back; without it, each sweep runs on all P particles and
+    keeps the live ones' results (the reference's hmc_compact=False). The
+    loop ends when none is live."""
     P = node_type.shape[0]
     dev = params_z.device
     alive = (torch.ones((P,), dtype=torch.bool, device=dev) if enabled is None
@@ -178,6 +181,8 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
         idx = torch.nonzero(alive).flatten()
         if idx.numel() == 0:
             break
+        if not compact:
+            idx = torch.arange(P, device=dev)
         nt_i = node_type[idx]
         pz_i, lml_i, acc_i = hmc_params_step(
             gen, nt_i, params_z[idx], noise_z[idx], lml[idx], data, cfg,
@@ -187,11 +192,17 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
             nz_i, lml_i, _ = hmc_noise_step(
                 gen, nt_i, pz_i, nz_i, lml_i, data, cfg, tables,
                 hmc.eps_noise, hmc.L_noise, idx, P)
-        params_z[idx] = pz_i
-        noise_z[idx] = nz_i
-        lml[idx] = lml_i
-        acc = torch.zeros_like(alive)
-        acc[idx] = acc_i
+        if compact:
+            params_z[idx] = pz_i
+            noise_z[idx] = nz_i
+            lml[idx] = lml_i
+            acc = torch.zeros_like(alive)
+            acc[idx] = acc_i
+        else:
+            params_z = torch.where(alive[:, None, None], pz_i, params_z)
+            noise_z = torch.where(alive, nz_i, noise_z)
+            lml = torch.where(alive, lml_i, lml)
+            acc = acc_i & alive
         n_accept += acc.to(torch.int64)
         n_sweeps += alive.to(torch.int64)
         n_reject = torch.where(acc, 0, n_reject + alive.to(torch.int64))

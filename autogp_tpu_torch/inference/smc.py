@@ -205,11 +205,12 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
                          cfg: C.GPConfig, tables, n_mcmc: int, n_hmc: int,
                          biased: bool = False,
                          hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
-                         check: bool = False):
+                         check: bool = False, hmc_compact: bool = True):
     """n_mcmc involutive-MH steps on the whole batch; after each, the
     particles that accepted their structure move get up to n_hmc sweeps
     of parameter [+ noise] HMC (smc.py:311-442). Noise HMC runs when the
-    config leaves the noise free.
+    config leaves the noise free; `hmc_compact` as in
+    hmc.rejuvenate_parameters.
 
     With check=True every step also runs the round-trip checks on the
     post-move state (Gen.metropolis_hastings(check=true)). Returns
@@ -240,7 +241,7 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
         if n_hmc > 0:
             pz, nz, lml, acc, sw = hmc_mod.rejuvenate_parameters(
                 gen, nt, pz, nz, lml, d, cfg, tables, n_hmc, hmc_cfg,
-                infer_noise, enabled=res.accepted)
+                infer_noise, enabled=res.accepted, compact=hmc_compact)
             n_hmc_acc = n_hmc_acc + acc
             n_sweeps = n_sweeps + sw
         n_acc = n_acc + res.accepted.to(torch.int64)
@@ -253,7 +254,7 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
               allow_resample: bool, ess_threshold: float,
               adaptive_rejuvenation: bool,
               hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
-              check: bool = False):
+              check: bool = False, hmc_compact: bool = True):
     """reweight -> maybe_resample -> rejuvenate (inference_smc_anneal_
     data.jl:206-253). Returns (particles, stats)."""
     dev = particles.noise_z.device
@@ -266,7 +267,8 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
     if rejuvenated:
         particles, n_acc, n_sweeps, n_hmc_acc, check_ok = \
             rejuvenate_structure(gen, particles, data, cfg, tables, n_mcmc,
-                                 n_hmc, biased, hmc_cfg=hmc_cfg, check=check)
+                                 n_hmc, biased, hmc_cfg=hmc_cfg, check=check,
+                                 hmc_compact=hmc_compact)
     else:
         n_acc = torch.zeros((P,), dtype=torch.int64, device=dev)
         n_sweeps = torch.zeros_like(n_acc)
@@ -319,7 +321,8 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                         adaptive_rejuvenation: bool = False,
                         verbose: bool = False, check: bool = False,
                         round_stats: Optional[list] = None,
-                        callback_fn: Optional[Callable] = None) -> Particles:
+                        callback_fn: Optional[Callable] = None,
+                        hmc_compact: bool = True) -> Particles:
     """Anneal over data prefixes ts[perm][:step] for step in schedule.
     With a list `round_stats`, one dict of totals per round is appended
     to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted.
@@ -377,7 +380,8 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
         particles, stats = smc_round(
             gen, particles, data, cfg, tables, int(n_mcmc[i]),
             int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
-            adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check)
+            adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check,
+            hmc_compact=hmc_compact)
         dt_round = clock() - t0
         elapsed += dt_round
         if round_stats is not None:

@@ -98,17 +98,20 @@ def cov_tape(node_type, params_t, noise, t_row, t_col, m_row, m_col,
     m_row [N1]; t_col, m_col [N2]. With `gram` (N1 == N2, one time grid),
     noise is added on the diagonal and masked rows/columns become the
     identity; otherwise masked entries are 0. `lower_only` (gram only)
-    writes zeros above the diagonal, for the lower-reading Cholesky."""
+    writes zeros above the diagonal, for the lower-reading Cholesky.
+
+    On the card a heap deeper than MAX_DEPTH raises; the plain version
+    takes any depth, as the reference's evaluator does."""
     if lower_only and not gram:
         raise ValueError("lower_only applies to a gram block only")
     if gram and t_row.shape[0] != t_col.shape[0]:
         raise ValueError("a gram block is square")
-    if depth_cap > MAX_DEPTH:
-        raise ValueError(f"depth_cap={depth_cap} exceeds the kernel's value "
-                         f"stack bound {MAX_DEPTH}")
     if not backend.on_cuda(params_t):
         return cov_tape_plain(node_type, params_t, noise, t_row, t_col,
                               m_row, m_col, depth_cap, gram, lower_only)
+    if depth_cap > MAX_DEPTH:
+        raise ValueError(f"depth_cap={depth_cap} exceeds the kernel's value "
+                         f"stack bound {MAX_DEPTH}")
     return _launch(node_type, params_t, noise, t_row, t_col, m_row, m_col,
                    depth_cap, gram, lower_only)
 

@@ -44,6 +44,11 @@ NODE_CLASS = {
 CLASS_CODE = {v: k for k, v in NODE_CLASS.items()}
 
 
+def node_code(node: K.Node) -> int:
+    """Integer node-type code of a symbolic node."""
+    return CLASS_CODE[type(node)]
+
+
 def _kind(field: str) -> str:
     return field if field in ("gamma", "period") else "wildcard"
 
@@ -125,6 +130,13 @@ def tree_depth(node_type):
         gp_math.slot_depths(node_type.shape[-1].bit_length()),
         device=node_type.device)
     return torch.max(torch.where(node_type > 0, depths, 0), dim=-1).values
+
+
+def num_active_params(node_type):
+    """[...] number of active continuous tree parameters of each heap
+    node_type [..., M] (the HMC dimension; autogp_tpu/tree.py:141)."""
+    ar = torch.as_tensor(C.PARAM_ARITY, device=node_type.device)
+    return ar[node_type].sum(dim=-1)
 
 
 def param_mask(node_type):

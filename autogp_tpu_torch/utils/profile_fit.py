@@ -1,6 +1,6 @@
 """Where the time of a fit goes, on one NVIDIA GPU.
 
-    python3 -m autogp_tpu_torch.utils.profile_fit [config4|online32]
+    python3 -m autogp_tpu_torch.utils.profile_fit [config4|online32|config3]
 
 `config4` (the default) is the fit of chip_smoke.py's end-to-end phase (64
 particles, a synthetic N = 1024 series, linear_schedule(1024, .25),
@@ -8,14 +8,17 @@ n_mcmc=10, n_hmc=10). `online32` is the start of its online phase: 128
 particles, the per-point schedule 1, 2, ..., 8 on the first 8 points of
 that phase's series (every round in the 32-point bucket, where the
 gradient takes the dense route), n_mcmc=5, n_hmc=5, n_exit=1, depth cap 5,
-without the logging callback. The fit runs three times after a warm-up
-fit:
+without the logging callback. `config3` is its greedy phase:
+fit_greedy(max_depth=3) on the 144-point airline series, one particle,
+GPConfig(changepoints=False, max_depth=3). The fit runs three times after
+a warm-up fit:
 
 1. plain, timed with CUDA events;
 2. with host timers (each followed by a synchronize) around the MH step,
-   the parameter-HMC trajectory and the noise-HMC trajectory, which gives
-   the fit's split between structure moves and HMC and the trajectories'
-   count and mean time;
+   the parameter-HMC trajectory and the noise-HMC trajectory (config3:
+   around each probe's score-and-gradient and each stage's candidate
+   enumeration), which gives the fit's split and the pieces' count and
+   mean time;
 3. under torch.profiler (CPU and CUDA activities): device busy time (the
    sum of kernel times) and idle share over the profiled fit, device time
    by kernel, and host time by op. The profiler slows the host, so that
@@ -63,14 +66,25 @@ def _workload(A, name: str):
             "n_particles": 128, "config": A.GPConfig(max_depth=5)}, {
             "schedule": list(range(1, 9)), "n_mcmc": 5, "n_hmc": 5,
             "shuffle": False, "hmc_config": {"n_exit": 1}}
-    raise SystemExit(f"unknown workload {name!r}: config4 or online32")
+    if name == "config3":
+        rng = np.random.default_rng(0)
+        t = np.arange(144, dtype=float)
+        y = (1.0 + 0.02 * t) * (10.0 + 3.0 * np.sin(2 * np.pi * t / 12.0)) \
+            + 0.5 * rng.standard_normal(144)
+        return t, y, {"n_particles": 1, "config": A.GPConfig(
+            changepoints=False, max_depth=3)}, {"max_depth": 3}
+    raise SystemExit(f"unknown workload {name!r}: config4, online32 or "
+                     f"config3")
 
 
 def _fit(A, work, seed, **override):
     t, y, model_kw, fit_kw = work
     A.seed(seed)
     m = A.GPModel(t, y, **model_kw)
-    A.fit_smc(m, **{**fit_kw, **override})
+    if "max_depth" in fit_kw:
+        A.fit_greedy(m, **fit_kw)
+    else:
+        A.fit_smc(m, **{**fit_kw, **override})
     torch.cuda.synchronize()
     return m
 
@@ -81,7 +95,7 @@ def main():
         sys.exit(1)
     warnings.simplefilter("ignore")
     import autogp_tpu_torch as A
-    from autogp_tpu_torch.inference import hmc, smc
+    from autogp_tpu_torch.inference import greedy, hmc, smc
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,16 +129,19 @@ def main():
             calls[name] += 1
             return r
         return wrapper
-    saved = (smc.moves.tree_rejuvenation_step, hmc.params_trajectory,
-             hmc.noise_trajectory)
-    smc.moves.tree_rejuvenation_step = timed("mh_step", saved[0])
-    hmc.params_trajectory = timed("param_trajectory", saved[1])
-    hmc.noise_trajectory = timed("noise_trajectory", saved[2])
+    hooks = [(smc.moves, "tree_rejuvenation_step", "mh_step"),
+             (hmc, "params_trajectory", "param_trajectory"),
+             (hmc, "noise_trajectory", "noise_trajectory"),
+             (greedy, "_value_and_grad", "probe"),
+             (greedy, "enumerate_next_structures", "enumerate")]
+    saved = [getattr(mod, attr) for mod, attr, _ in hooks]
+    for (mod, attr, label), fn in zip(hooks, saved):
+        setattr(mod, attr, timed(label, fn))
     t0 = time.perf_counter()
     _fit(A, work, seed=1)
     total = time.perf_counter() - t0
-    smc.moves.tree_rejuvenation_step, hmc.params_trajectory, \
-        hmc.noise_trajectory = saved
+    for (mod, attr, _), fn in zip(hooks, saved):
+        setattr(mod, attr, fn)
     out["timed_fit_s"] = total
     out["split_s"] = dict(spent)
     out["calls"] = dict(calls)

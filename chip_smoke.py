@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SMC and online-forecasting paths, HMC included,
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's SMC, online-forecasting, greedy-search and
+decomposition paths, HMC included, once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -104,13 +104,44 @@ back to the CPU):
      mcmc_structure(n_mcmc=5, n_hmc=5), predict_proba, and the top-8
      check against float64 on the CPU.
 
+ 13. greedy: config 3 -- fit_greedy(max_depth=3) on the 144-point
+     airline series of scripts/bench_configs.py (GPConfig(changepoints=
+     False, max_depth=3), seed 11, one particle; bucket 256, a batch of 32
+     candidates a stage), timed with CUDA events after a warm-up fit on
+     seed 12, every launch counter reset just before: kernels 1, 2, 4
+     (kinv_beta_strips) and 5 must launch; the AIC non-increasing over the
+     stages, validate_particles, the final LML within 1e-3 of a float64
+     CPU re-evaluation, the AIC 2 (k - lml); the warm-up fit's last
+     candidate batch ([32, 256, 256], 144 points active) at its start and
+     its optimized parameters: model.lml and its autograd gradient on the
+     card against the same function in float64 on the CPU (LML rel 1e-3;
+     at the start, gradient normwise 1e-2 per lane whose float64 gram has
+     condition number < 1e5), kernel 1 against its plain version (1e-5)
+     and kernel 5 against its plain version in f64 on the same inputs
+     (each parameter's error <= 1e-5 of the sum of its terms' magnitudes;
+     at the start, per lane max|err| / max|ref| <= 1e-3, reported beside
+     the plain version's in float32); then
+     fit_greedy_mcmc(n_mcmc=6, n_parallel=4) from that state: AIC
+     non-increasing, kernel 5 launches;
+ 14. decompose: decompose, extract_kernel and split_kernel_sop by
+     GP.Periodic on phase 8's model, the largest sum-of-products component
+     depth by leaf type, then predict_mvn_sum and predict_sum at phase 8's
+     32 points, every launch counter reset before predict_mvn_sum: kernel
+     1 must launch there; its component blocks against kernel 1's plain
+     version on the same inputs (normwise 1e-5 per block); per particle
+     the Y mean equals F_T + F_nT (normwise 1e-4); the 8 heaviest
+     particles' means and covariances within 1e-3 (normwise) of a float64
+     CPU run on the model carried over by to_dict / from_dict.
+
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
 version's and a library call's (CUDA events), and its bound: the largest
 of the bytes it must move over 3.35 TB/s and its operations over the peak
 of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
-special functions), with that pipe named (`pipe`); the last line is the
-device JSON.
+special functions), with that pipe named (`pipe`), and its launches in
+config 3's greedy fit (`launches_config3`) and in phase 14's
+predict_mvn_sum (`launches_predict_mvn_sum`), each read from the row's own
+counter; the last line is the device JSON.
 """
 
 import json
@@ -267,6 +298,432 @@ def top8_vs_f64_cpu(A, np, torch, model, df, ds_pred, quantiles, y_range):
     got = df[cols].to_numpy().reshape(P, n_pred, len(cols))[top]
     want = df_ref[cols].to_numpy().reshape(len(top), n_pred, len(cols))
     return lml_rel, float(np.abs(got - want).max() / y_range)
+
+
+def airline_series(np, n=144):
+    """Config 3's series (scripts/bench_configs.py:38-43): an airline-like
+    trend times a 12-step season, plus noise, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    t = np.arange(n, dtype=float)
+    y = (1.0 + 0.02 * t) * (10.0 + 3.0 * np.sin(2 * np.pi * t / 12.0)) \
+        + 0.5 * rng.standard_normal(n)
+    return t, y
+
+
+def row_counters():
+    """Each kernels-line row's own launch counter, (module, attribute)."""
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    return {"cov_tape": (cov, "launches"),
+            "chol_panel": (chol, "launches"),
+            "linv_stats_wd": (kinv, "stats_launches"),
+            "linv_beta": (kinv, "linv_beta_launches"),
+            "kinv_beta": (kinv, "kinv_beta_launches"),
+            "linv_stats": (kinv, "linv_stats_launches"),
+            "kinv_beta_strips": (kinv, "strips_launches"),
+            "cov_tape_bwd": (cov_vjp, "launches"),
+            "cov_tape_bwd_linv": (cov_vjp, "linv_launches"),
+            "cov_slot": (cov, "slot_launches"),
+            "cov_tape_bwd_unfused": (cov_vjp, "unfused_launches"),
+            "cov_slot_bwd": (cov_vjp, "slot_launches")}
+
+
+def zero_counts(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def term_scale(torch, nt, pt, ts, mask, kinv_lower, beta, depth_cap):
+    """[P, 3M] float64: for each parameter, the sum over the gram's
+    elements of |cotangent x dK / dparameter|, the size of the terms whose
+    sum kernel 5 returns, from the plain version in float64 on the same
+    inputs (one forward-mode derivative per parameter slot)."""
+    from autogp_tpu_torch import gp_math
+    from autogp_tpu_torch.ops import cov
+    f64 = torch.float64
+    P, M = nt.shape
+    Kinv = torch.tril(kinv_lower) + torch.tril(kinv_lower, -1).mT
+    kbar = gp_math.mvn_logpdf_cotangent(
+        beta.double(), Kinv.double(), mask.double(),
+        torch.ones(P, dtype=f64, device=pt.device))
+    pt64, ts64, m64 = pt.double(), ts.double(), mask.double()
+    zero = torch.zeros(P, dtype=f64, device=pt.device)
+
+    def K(par):
+        return cov.cov_tape_plain(nt, par, zero, ts64, ts64, m64, m64,
+                                  depth_cap, True, False)
+    scale = torch.zeros(P, 3 * M, dtype=f64, device=pt.device)
+    for k in range(3 * M):
+        tangent = torch.zeros_like(pt64).view(P, -1)
+        tangent[:, k] = 1.0
+        _, dK = torch.func.jvp(K, (pt64,), (tangent.view_as(pt64),))
+        scale[:, k] = (kbar * dK).abs().sum((1, 2))
+    return scale
+
+
+def greedy_batch_check(A, np, torch, batch):
+    """One stage's padded candidate batch of config 3's fit, at its start
+    and at its optimized parameters: model.lml and its autograd gradient
+    on the card (kernels 1, 2, 4 and 5) against the same function in
+    float64 on the CPU, where every kernel wrapper takes its plain
+    version; kernel 1 against its plain version; kernel 5 against its
+    plain version in f64 on the same inputs.
+
+    The gradient is a sum of terms that cancel: its float32 error is
+    relative to the terms' size, not to the sum. So kernel 5's error in
+    each parameter is gated against the sum of its terms' magnitudes
+    (`term_scale`) on both batches, and its error relative to the
+    gradient, reported beside that of the plain version run in float32,
+    at the start only; the end-to-end gradient likewise: at the optimized
+    parameters the gradient is near zero. Returns a message."""
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    nt, pz_sets, nz_sets, data, cfg, tables = batch
+    f64 = torch.float64
+    ts, xs, mask = data.ts, data.xs, data.mask
+    B, N, D = nt.shape[0], ts.shape[0], tables.depth_cap
+    if (B, N, int(mask.sum())) != (32, 256, 144):
+        fail(f"greedy: the candidate batch is [{B}, {N}] with "
+             f"{int(mask.sum())} active, not [32, 256] with 144")
+    tab64 = M.prior_tables(cfg, "cpu", f64)
+    ts64, xs64, m64 = (a.double().cpu() for a in (ts, xs, mask))
+    ntc = nt.cpu()
+    route = ("cov_tape", "chol_panel", "kinv_beta_strips", "cov_tape_bwd")
+    counters = {k: v for k, v in row_counters().items() if k in route}
+    msgs = []
+    for label, pz, nz in zip(("start", "optimized"), pz_sets, nz_sets):
+        gated = label == "start"
+        # model.lml and its gradient: the card against float64 on the CPU.
+        before = read_counts(counters)
+        pzg = pz.detach().clone().requires_grad_(True)
+        nzg = nz.detach().clone().requires_grad_(True)
+        v = M.lml(nt, pzg, nzg, ts, xs, mask, cfg, tables)
+        gp, gn = torch.autograd.grad(v.sum(), (pzg, nzg))
+        torch.cuda.synchronize()
+        used = {k: n_ - before[k] for k, n_ in read_counts(counters).items()}
+        if min(used.values()) <= 0:
+            fail(f"greedy batch ({label}): lml under grad skipped a kernel "
+                 f"of the fused route: {used}")
+        pzc = pz.detach().double().cpu().requires_grad_(True)
+        nzc = nz.detach().double().cpu().requires_grad_(True)
+        vr = M.lml(ntc, pzc, nzc, ts64, xs64, m64, cfg, tab64)
+        gpr, gnr = torch.autograd.grad(vr.sum(), (pzc, nzc))
+        vr = vr.detach()
+        with torch.no_grad():
+            K64 = cov.cov_tape_plain(
+                ntc, M.transform_params(ntc, pzc, tab64),
+                M.transform_noise(nzc, cfg), ts64, ts64, m64, m64, D, True,
+                False)
+            ev = torch.linalg.eigvalsh(K64)
+            cond = torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0],
+                               float("inf"))
+        vc = v.detach().double().cpu()
+        g_c = torch.cat([gp.flatten(1), gn[:, None]], 1).double().cpu()
+        g_r = torch.cat([gpr.flatten(1), gnr[:, None]], 1)
+        fin_r = torch.isfinite(vr) & torch.isfinite(g_r).all(1)
+        fin_c = torch.isfinite(vc) & torch.isfinite(g_c).all(1)
+        well = fin_r & (cond < 1e5)
+        if int(well.sum()) == 0 or not bool(fin_c[well].all()):
+            fail(f"greedy batch ({label}): {int(well.sum())} lanes with "
+                 f"cond < 1e5, {int((well & ~fin_c).sum())} of them not "
+                 f"finite on the card")
+        both = fin_r & torch.isfinite(vc)
+        lml_rel = float(((vc - vr).abs() / vr.abs())[both].max())
+        e_g = per_particle_rel(g_c, g_r)
+        g_rel = float(e_g[well].max())
+        if not lml_rel <= 1e-3 or (gated and not g_rel <= 1e-2):
+            fail(f"greedy batch ({label}): card vs float64 CPU, LML rel "
+                 f"{lml_rel:.3e} (gate 1e-3), gradient worst {g_rel:.3e} "
+                 f"on cond < 1e5 (gate 1e-2)")
+        # Kernels 1 and 5 alone on these inputs.
+        with torch.no_grad():
+            pt = M.transform_params(nt, pz, tables)
+            noise = M.transform_noise(nz, cfg)
+            K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True,
+                             True)
+            k1 = normwise_rel(K, cov.cov_tape_plain(
+                nt, pt, noise, ts, ts, mask, mask, D, True, True))
+            _, alpha, wd, L = chol.chol_solve_strips(
+                K, (xs * mask).expand(B, N))
+            Ki, beta, _ = kinv.kinv_beta_strips(alpha, wd, L)
+            g1 = torch.ones(B, device=ts.device)
+            pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g1, D)
+            pr, nr = cov_vjp.cov_tape_bwd_plain(
+                nt, pt.double(), ts.double(), mask.double(), Ki.double(),
+                beta.double(), g1.double(), D)
+            p32, _ = cov_vjp.cov_tape_bwd_plain(nt, pt, ts, mask, Ki, beta,
+                                                g1, D)
+        scale = term_scale(torch, nt, pt, ts, mask, Ki, beta, D)
+        ok = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+        err = (pb.double() - pr).abs().flatten(1)
+        e_s = torch.where(scale > 0, err / scale, err).amax(1)
+        e_s = torch.where(ok, e_s, 0.0)
+        worst = int(e_s.argmax())
+        e_p = per_particle_rel(pb, pr)[ok]
+        e_32 = per_particle_rel(p32, pr)[ok]
+        e_n = float(((nb.double() - nr).abs() / nr.abs())[ok].max())
+        if not (k1 <= 1e-5 and float(e_s.max()) <= 1e-5 and e_n <= 1e-3
+                and (not gated or float(e_p.max()) <= 1e-3)):
+            fail(f"greedy batch ({label}): kernel 1 vs plain {k1:.3e} (gate"
+                 f" 1e-5); kernel 5 vs f64 plain: worst error / sum of the "
+                 f"terms' magnitudes {float(e_s.max()):.3e} (gate 1e-5, lane"
+                 f" {worst}, {nt[worst].tolist()}), per lane max|err| / "
+                 f"max|ref| {float(e_p.max()):.3e} (gate 1e-3 at the start),"
+                 f" nbar {e_n:.3e} (gate 1e-3) on {int(ok.sum())} lanes")
+        rest = fin_r & fin_c & ~well
+        msgs.append(
+            f"{label}: LML rel {lml_rel:.3e} on {int(both.sum())} lanes "
+            f"(gate 1e-3), gradient worst {g_rel:.3e} (median "
+            f"{float(e_g[well].median()):.3e}"
+            f"{'; gate 1e-2' if gated else ', reported'}) on "
+            f"{int(well.sum())} lanes with cond < 1e5 (largest "
+            f"{float(cond[well].max()):.3e}), {int(rest.sum())} more with "
+            f"cond >= 1e5 worst "
+            f"{float(e_g[rest].max()) if rest.any() else 0.0:.3e}; kernel 1"
+            f" vs plain {k1:.3e} (gate 1e-5); kernel 5 vs f64 plain on "
+            f"{int(ok.sum())} lanes: error / sum of the terms' magnitudes "
+            f"worst {float(e_s.max()):.3e} (gate 1e-5), nbar rel {e_n:.3e} "
+            f"(gate 1e-3), per lane max|err| / max|ref| worst "
+            f"{float(e_p.max()):.3e} (median {float(e_p.median()):.3e}"
+            f"{'; gate 1e-3' if gated else ', reported'}; the plain version"
+            f" in float32: {float(e_32.max()):.3e})")
+    return (f"candidate batch [{B}, {N}, {N}] with {int(mask.sum())} active"
+            f" vs float64: " + "; ".join(msgs))
+
+
+def greedy_phase(A, np, torch):
+    """Config 3 on the card: fit_greedy(max_depth=3) on the 144-point
+    airline series (bucket 256, a batch of 32 candidates a stage), timed
+    after a warm-up fit on another seed, launches counted; the warm-up's
+    last candidate batch checked by greedy_batch_check; then
+    fit_greedy_mcmc(n_mcmc=6, n_parallel=4) from its state. Returns the
+    fit's launches by kernels-line row."""
+    from autogp_tpu_torch.inference import greedy as G
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.ops import cov_vjp
+    t, y = airline_series(np)
+    cfg = A.GPConfig(changepoints=False, max_depth=3)
+    bucket = G.sweep_bucket(cfg, 3)
+    # The warm-up fit, its candidate batches recorded on their way through
+    # map_optimize (inputs and optimized parameters).
+    batches = []
+    map_optimize = G.map_optimize
+
+    def recording(nt, pz, nz, data, cfg_, tables, *args, **kw):
+        res = map_optimize(nt, pz, nz, data, cfg_, tables, *args, **kw)
+        batches.append((nt, (pz, res.params_z), (nz, res.noise_z), data,
+                        cfg_, tables))
+        return res
+    G.map_optimize = recording
+    try:
+        A.seed(12)
+        A.fit_greedy(A.GPModel(t, y, n_particles=1, config=cfg),
+                     max_depth=3)
+    finally:
+        G.map_optimize = map_optimize
+    torch.cuda.synchronize()
+
+    counters = row_counters()
+    zero_counts(counters)
+    A.seed(11)
+    steps = []
+
+    def callback(*, model, step, aic, elapsed):
+        steps.append((step, aic, str(model.covariance_kernels(
+            reparameterize=False)[0])))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    m = A.GPModel(t, y, n_particles=1, config=cfg)
+    A.fit_greedy(m, max_depth=3, callback_fn=callback)
+    ev[1].record()
+    torch.cuda.synchronize()
+    fit_ms = ev[0].elapsed_time(ev[1])
+    launches = read_counts(counters)
+    path = ("cov_tape", "chol_panel", "kinv_beta_strips", "cov_tape_bwd")
+    if min(launches[k] for k in path) <= 0:
+        fail(f"greedy: a kernel of config 3's path never launched: "
+             f"{launches}")
+    if m.device.type != "cuda" or m.particles.params.dtype != torch.float32:
+        fail("greedy: the model is not a float32 CUDA model")
+    aics = [a for _, a, _ in steps]
+    if [s_ for s_, _, _ in steps] != [1, 2, 3] or not all(
+            b <= a for a, b in zip(aics, aics[1:])):
+        fail(f"greedy: steps or AICs not non-increasing: {steps}")
+    smc.validate_particles(m.particles, m.config, tables=m.tables)
+    lml_card = float(m.particles.lml[0])
+    ref = A.from_dict(A.to_dict(m), device="cpu", dtype=torch.float64)
+    lml_ref = float(ref.particles.lml[0])
+    lml_rel = abs(lml_card - lml_ref) / abs(lml_ref)
+    if not lml_rel <= 1e-3:
+        fail(f"greedy: final LML {lml_card} vs float64 CPU {lml_ref} "
+             f"(rel {lml_rel:.3e})")
+    k = int(G.n_params(m.particles.node_type[0], cfg.noise is None))
+    aic_err = abs(aics[-1] - 2.0 * (k - lml_card)) / abs(aics[-1])
+    if not aic_err <= 1e-6:
+        fail(f"greedy: AIC {aics[-1]} != 2 (k - lml) = "
+             f"{2.0 * (k - lml_card)} (k = {k})")
+    stats = m.round_stats
+    batch_msg = greedy_batch_check(A, np, torch, batches[-1])
+    # fit_greedy_mcmc from that state; its kernel-5 launches counted.
+    cov_vjp.launches = 0
+    mc = []
+    t0 = time.perf_counter()
+    A.fit_greedy_mcmc(m, n_mcmc=6, n_parallel=4, callback_fn=lambda **kw:
+                      mc.append((kw["aic"], kw["accepted"])))
+    torch.cuda.synchronize()
+    mcmc_s = time.perf_counter() - t0
+    mc_aics = [a for a, _ in mc]
+    if len(mc) != 6 or not all(b <= a for a, b in zip(mc_aics, mc_aics[1:])):
+        fail(f"greedy_mcmc: AICs not non-increasing: {mc}")
+    if cov_vjp.launches <= 0:
+        fail("greedy_mcmc: kernel 5 never launched")
+    phase("greedy", f"config 3: fit_greedy(max_depth=3) on the 144-point "
+          f"airline series (bucket 256, batch {bucket}) {fit_ms:.1f} ms (CUDA "
+          f"events, after a warm-up fit on seed 12); per stage (step, AIC, "
+          f"structure, candidates, probes) " + ", ".join(
+              f"({s_}, {a:.4f}, {st}, {r['candidates']}, {r['probes']})"
+              for (s_, a, st), r in zip(steps, stats))
+          + f"; launches {launches}; final LML {lml_card:.4f} vs float64 "
+          f"CPU {lml_ref:.4f} (rel {lml_rel:.3e}, gate 1e-3); AIC = 2 (k - "
+          f"lml) with k = {k} (rel {aic_err:.1e}); validate_particles ok; "
+          f"{batch_msg}; fit_greedy_mcmc(6, n_parallel=4) {mcmc_s:.2f} s, "
+          f"AICs " + ", ".join(f"{a:.4f}{'*' if acc else ''}" for a, acc in mc)
+          + f" (* accepted), kernel 5 launches {cov_vjp.launches}")
+    return launches
+
+
+def decompose_phase(A, np, torch, model, ds_pred, quantiles):
+    """The decomposition API on a fitted CUDA model: decompose,
+    extract_kernel and split_kernel_sop by GP.Periodic, predict_sum and
+    predict_mvn_sum at ds_pred; kernel 1 must launch in predict_mvn_sum
+    and agree with its plain version on the component blocks, each
+    particle's Y mean must be F_T + F_nT, and the 8 heaviest particles'
+    means and covariances must agree with a float64 CPU run of
+    predict_mvn_sum on the model carried over by to_dict / from_dict.
+    Returns predict_mvn_sum's launches by kernels-line row."""
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch import tree as T
+    from autogp_tpu_torch.ops import cov
+    GP = A.GP
+    P = model.num_particles
+    t0 = time.perf_counter()
+    subs = A.decompose(model)
+    kernels = model.covariance_kernels(reparameterize=False)
+    if len(subs) != P or any(
+            s_.device.type != "cuda" or s_.num_particles != len(GP.unroll(k))
+            for s_, k in zip(subs, kernels)):
+        fail("decompose: wrong sub-model count, size or device")
+    n_frag = sum(s_.num_particles for s_ in subs)
+    n_frag_bad = sum(int((~torch.isfinite(s_.particles.lml)).sum())
+                     for s_ in subs)
+    ex = A.extract_kernel(model, GP.Periodic)
+    sa, sb = A.split_kernel_sop(model, GP.Periodic)
+    if not all(m_.device.type == "cuda" and m_.num_particles == P
+               for m_ in (ex, sa, sb)):
+        fail("extract_kernel / split_kernel_sop: wrong model")
+    depths = {lt.__name__: max(max(c.depth for c in s_)
+                               for s_ in A.api.sum_components(model, lt))
+              for lt in (GP.Periodic, GP.Linear)}
+    # A Constant(0) pad encodes as z = -inf: its transform is exactly 0.
+    cfg2 = A.GPConfig(max_depth=2)
+    with np.errstate(divide="ignore"):
+        nt0, pz0 = T.node_to_tensor(GP.Constant(0.0) + GP.Periodic(1, 1, 1),
+                                    cfg2)
+    pt0 = M.transform_params(
+        torch.as_tensor(nt0, device="cuda")[None],
+        torch.as_tensor(pz0, dtype=torch.float32, device="cuda")[None],
+        M.prior_tables(cfg2, "cuda", torch.float32))
+    if not (bool(torch.isfinite(pt0).all()) and float(pt0[0, 1, 0]) == 0.0):
+        fail(f"Constant(0) pad transforms to {pt0[0, 1].tolist()}, not 0")
+    api_s = time.perf_counter() - t0
+
+    counters = row_counters()
+    zero_counts(counters)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    mix, idx = A.predict_mvn_sum(model, ds_pred, GP.Periodic)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    if launches["cov_tape"] <= 0:
+        fail("predict_mvn_sum: kernel 1 never launched")
+    # Kernel 1 on predict_mvn_sum's own inputs against its plain version.
+    nt_c, pt_c, z, depth_c = A.api.sum_component_heaps(model, ds_pred,
+                                                       GP.Periodic)
+    ones = torch.ones_like(z)
+    zero = torch.zeros(nt_c.shape[0], device=z.device)
+    Kc = cov.cov_tape(nt_c, pt_c, zero, z, z, ones, ones, depth_c,
+                      gram=False)
+    blk_err = 0.0
+    for s_ in range(0, len(nt_c), 16):
+        Kp = cov.cov_tape_plain(nt_c[s_:s_ + 16], pt_c[s_:s_ + 16],
+                                zero[s_:s_ + 16], z, z, ones, ones, depth_c,
+                                False, False)
+        # Per block, relative to its largest entry; a Constant(0)
+        # component's block (no such leaf in the particle) must be 0.
+        num = (Kc[s_:s_ + 16] - Kp).abs().flatten(1).amax(1)
+        den = Kp.abs().flatten(1).amax(1)
+        blk_err = max(blk_err, float(torch.where(den > 0, num / den,
+                                                 num).max()))
+    if not blk_err <= 1e-5:
+        fail(f"predict_mvn_sum: kernel 1's component blocks vs plain "
+             f"{blk_err:.3e} (gate 1e-5)")
+    del Kc
+    ev[2].record()
+    df = A.predict_sum(model, ds_pred, GP.Periodic, quantiles=quantiles)
+    ev[3].record()
+    torch.cuda.synchronize()
+    cols = ["y_mean"] + [f"y_{q}" for q in quantiles]
+    if (len(df) != 3 * P * len(ds_pred)
+            or not np.isfinite(df[cols].to_numpy()).all()):
+        fail("predict_sum output not finite or of the wrong shape")
+    sum_errs = [float(np.abs(c.mean[idx["Y"]] - c.mean[idx["F"][0]]
+                             - c.mean[idx["F"][1]]).max()
+                      / np.abs(c.mean[idx["Y"]]).max())
+                for c in mix.components]
+    sum_err = max(sum_errs)
+    if not sum_err <= 1e-4:
+        fail(f"predict_mvn_sum: Y mean != F_T + F_nT (normwise {sum_err:.3e}"
+             f", particle {int(np.argmax(sum_errs))})")
+    w = model.particle_weights()
+    top = [int(i) for i in np.argsort(-w)[:8]]
+    d = A.to_dict(model)
+    for key in ("kernels", "noise_zs", "noises"):
+        d[key] = [d[key][i] for i in top]
+    d["pf_state"]["log_weights"] = [d["pf_state"]["log_weights"][i]
+                                    for i in top]
+    t0 = time.perf_counter()
+    ref = A.from_dict(d, device="cpu", dtype=torch.float64)
+    mix_ref, _ = A.predict_mvn_sum(ref, ds_pred, GP.Periodic)
+    ref_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    mean_err = max(rel(mix.components[i].mean, c.mean)
+                   for i, c in zip(top, mix_ref.components))
+    cov_err = max(rel(mix.components[i].cov, c.cov)
+                  for i, c in zip(top, mix_ref.components))
+    if not (mean_err <= 1e-3 and cov_err <= 1e-3):
+        fail(f"predict_mvn_sum: card vs float64 CPU on the top 8: mean "
+             f"{mean_err:.3e}, cov {cov_err:.3e}")
+    phase("decompose", f"on phase 8's config-4 model (P={P}): decompose "
+          f"({n_frag} fragments on the card, {n_frag_bad} with a non-finite"
+          f" f32 LML at noise 1e-10), extract_kernel(Periodic), "
+          f"split_kernel_sop(Periodic) {api_s:.2f} s; largest component "
+          f"depth by leaf type {depths}; predict_mvn_sum({len(ds_pred)}) "
+          f"{ev[0].elapsed_time(ev[1]):.1f} ms, predict_sum({len(ds_pred)}, "
+          f"{len(quantiles)} quantiles) {ev[2].elapsed_time(ev[3]):.1f} ms "
+          f"(CUDA events); launches in predict_mvn_sum {launches}; kernel 1's"
+          f" [{len(nt_c)}, {len(z)}, {len(z)}] component blocks (depth cap "
+          f"{depth_c}) vs plain {blk_err:.3e} (gate 1e-5); Y mean = F_T + "
+          f"F_nT to {sum_err:.3e} (gate 1e-4); top 8 vs float64 CPU "
+          f"({ref_s:.1f} s): mean {mean_err:.3e}, cov {cov_err:.3e} (gate "
+          f"1e-3); Constant(0) pads transform to 0")
+    return launches
 
 
 def main():
@@ -829,6 +1286,7 @@ def main():
           f"{pred_err:.3e}; validate_particles ok")
 
     rs8, fit_ms8, lml8 = rs, fit_ms, p.lml.clone()
+    model8 = model   # phase 14's model
     del model, df
 
     # ---- 8b. intape: the in-tape L^-1 backend --------------------------
@@ -1469,6 +1927,13 @@ def main():
           f"{lml_rel_on:.3e}, predict err / y-range {pred_err_on:.3e}; "
           f"validate_particles ok")
 
+    # ---- 13. greedy: config 3 ----------------------------------------
+    launches_c3 = greedy_phase(A, np, torch)
+
+    # ---- 14. decompose: the decomposition API on phase 8's model -------
+    launches_decomp = decompose_phase(A, np, torch, model8, ds_future,
+                                      [.1, .5, .9])
+
     # Each kernel's launches are those of the path that is its own: the
     # config-4 fit (phase 8) for the first five, the online run (phase 12)
     # for the unfused backward, the dense_grad drive of cov_matrix_diff(
@@ -1487,7 +1952,9 @@ def main():
                 "max_abs_err": err, "ms": ms,
                 "device_ms": None if math.isnan(dev_ms) else dev_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "pipe": bnd[2], "library_ms": lib_ms}
+                "bound_by": bnd[1], "pipe": bnd[2], "library_ms": lib_ms,
+                "launches_config3": launches_c3[name],
+                "launches_predict_mvn_sum": launches_decomp[name]}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",

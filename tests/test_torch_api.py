@@ -161,3 +161,48 @@ def test_smc_callback_sees_the_observed_prefix():
     np.testing.assert_array_equal(seen["ds_next"], ds[perm][5:])
     assert sub.particles is m.particles and sub.device == m.device
     assert sub.ds_transform == m.ds_transform
+
+
+def test_num_particles_is_module_level():
+    """The module-level accessor of autogp_tpu.api.num_particles
+    (api.py:252), exported like the JAX package's."""
+    m = autogp_tpu_torch.GPModel(np.arange(6.0), np.sin(np.arange(6.0)),
+                                 n_particles=3, device="cpu")
+    assert autogp_tpu_torch.num_particles(m) == m.num_particles == 3
+    assert autogp_tpu_torch.num_particles(m) == autogp_tpu.num_particles(
+        autogp_tpu.GPModel(np.arange(6.0), np.sin(np.arange(6.0)),
+                           n_particles=3))
+
+
+def test_log_transform_is_exported():
+    """LogTransform is exported as autogp_tpu/__init__.py:13 exports it,
+    and round-trips as the JAX package's does."""
+    x = np.array([0.5, 1.0, 7.0])
+    t, tj = autogp_tpu_torch.LogTransform(), autogp_tpu.LogTransform()
+    np.testing.assert_array_equal(t.apply(x), tj.apply(x))
+    np.testing.assert_allclose(t.unapply(t.apply(x)), x, rtol=1e-15)
+
+
+def test_fit_smc_hmc_compact_gives_the_same_fit():
+    """fit_smc(hmc_compact=False) runs each HMC sweep on all particles,
+    keeping the live ones' results (the reference's chunk width P); from
+    the same seed it gives the compacted fit's particles and round
+    statistics (float64; values to 1e-12, the same per-particle
+    arithmetic in batches of other sizes)."""
+    ds = np.linspace(0, 2, 24)
+    y = np.sin(3 * ds) + 0.1 * np.random.default_rng(2).standard_normal(24)
+    fits = []
+    for compact in (True, False):
+        autogp_tpu_torch.seed(4)
+        m = autogp_tpu_torch.GPModel(ds, y, n_particles=6, device="cpu")
+        autogp_tpu_torch.fit_smc(m, schedule=[12, 24], n_mcmc=2, n_hmc=3,
+                                 hmc_compact=compact)
+        fits.append(m)
+    a, b = fits
+    assert a.round_stats == b.round_stats
+    assert sum(r["hmc_sweeps"] for r in a.round_stats) > 0
+    assert torch.equal(a.particles.node_type, b.particles.node_type)
+    for f in ("params", "noise_z", "lml", "log_weights"):
+        np.testing.assert_allclose(getattr(b.particles, f).numpy(),
+                                   getattr(a.particles, f).numpy(),
+                                   rtol=1e-12, atol=1e-12, err_msg=f)

@@ -656,3 +656,155 @@ def test_cov_kernel_cross_block_bitwise(cuda, N1, N2):
     keep = (m_row[:, None] * m_col[None, :]) > 0
     want = torch.where(keep, K6[:, :N1, N1:], torch.zeros((), device=cuda))
     assert torch.equal(Kx, want)
+
+
+def _encode(dev, kernels, depth):
+    import numpy as np
+    from autogp_tpu_torch import tree as TT
+    cfg = C.GPConfig(max_depth=depth)
+    enc = [TT.node_to_tensor(k, cfg) for k in kernels]
+    nt = torch.as_tensor(np.stack([e[0] for e in enc]), device=dev)
+    pz = torch.as_tensor(np.stack([e[1] for e in enc]), dtype=torch.float32,
+                         device=dev)
+    return nt, TM.transform_params(nt, pz,
+                                   TM.prior_tables(cfg, dev, torch.float32))
+
+
+def test_cov_tape_raises_above_max_depth(cuda):
+    """On the card kernel 1 takes heaps of up to MAX_DEPTH levels and
+    raises above that, launching nothing (no plain fallback there)."""
+    from autogp_tpu_torch import kernels as GP
+    depth = cov.MAX_DEPTH + 1
+    nt, pt = _encode(cuda, [GP.Periodic(0.4, 0.21, 1.1)], depth)
+    ts = torch.linspace(0, 1, 33, device=cuda)
+    ones = torch.ones_like(ts)
+    before = cov.launches
+    with pytest.raises(ValueError, match="value stack bound"):
+        cov.cov_tape(nt, pt, torch.full((1,), 0.1, device=cuda), ts, ts,
+                     ones, ones, depth, gram=True)
+    assert cov.launches == before
+
+
+def test_constant_zero_pad_transforms_to_zero(cuda):
+    """A Constant(0) pad (predict_mvn_sum's components, extract_kernel)
+    encodes as z = -inf; in float32 on the card its transform is exactly 0
+    and nothing else of the heap turns non-finite."""
+    import numpy as np
+    from autogp_tpu_torch import kernels as GP
+    with np.errstate(divide="ignore"):
+        nt, pt = _encode(cuda, [GP.Constant(0.0) + GP.Periodic(1, 1, 1)], 2)
+    assert bool(torch.isfinite(pt).all())
+    assert float(pt[0, 1, 0]) == 0.0
+
+
+def _small_model(dev, n, P, config, seed):
+    import numpy as np
+    import autogp_tpu_torch as A
+    rng = np.random.default_rng(seed)
+    ds = np.linspace(0, 4, n)
+    y = np.sin(3 * ds) + 0.3 * ds + 0.1 * rng.standard_normal(n)
+    A.seed(seed)
+    return A.GPModel(ds, y, n_particles=P, config=config, device=dev)
+
+
+def test_predict_mvn_sum_card_matches_cpu(cuda):
+    """predict_mvn_sum on the card (kernel 1 on the components, float32)
+    against a float64 CPU run on the same model carried by to_dict /
+    from_dict: means and covariances within 1e-3 normwise per particle;
+    kernel 1 launches once."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = _small_model(cuda, 60, 8, A.GPConfig(), seed=3)
+        A.fit_smc(m, schedule=[30, 60], n_mcmc=2, n_hmc=1)
+    ref = A.from_dict(A.to_dict(m), device="cpu", dtype=torch.float64)
+    ds_pred = np.linspace(4, 5, 9)
+    before = cov.launches
+    mix, idx = A.predict_mvn_sum(m, ds_pred, A.GP.Periodic)
+    assert cov.launches == before + 1
+    mix_ref, _ = A.predict_mvn_sum(ref, ds_pred, A.GP.Periodic)
+    for a, b in zip(mix.components, mix_ref.components):
+        assert np.abs(a.mean - b.mean).max() <= 1e-3 * np.abs(b.mean).max()
+        assert np.abs(a.cov - b.cov).max() <= 1e-3 * np.abs(b.cov).max()
+
+
+def test_fit_greedy_on_card_rescored_on_cpu(cuda):
+    """A small fit_greedy on the card (fused gradient route at the
+    64-point bucket: kernels 1, 2, 4, 5 launch): AIC non-increasing, and
+    the final particle's LML re-scored in float64 on the CPU within
+    1e-3."""
+    import autogp_tpu_torch as A
+    from autogp_tpu_torch.ops import chol
+    cfg = A.GPConfig(max_depth=2, changepoints=False)
+    m = _small_model(cuda, 40, 1, cfg, seed=5)
+    counts = (cov.launches, chol.launches, kinv.strips_launches,
+              cov_vjp.launches)
+    aics = []
+    A.fit_greedy(m, max_depth=2, callback_fn=lambda **kw:
+                 aics.append(kw["aic"]))
+    now = (cov.launches, chol.launches, kinv.strips_launches,
+           cov_vjp.launches)
+    assert all(b > a for a, b in zip(counts, now))
+    assert len(aics) == 2 and aics[1] <= aics[0]
+    ref = A.from_dict(A.to_dict(m), device="cpu", dtype=torch.float64)
+    lml, lml_ref = float(m.particles.lml[0]), float(ref.particles.lml[0])
+    assert abs(lml - lml_ref) <= 1e-3 * abs(lml_ref)
+
+
+def _short_period_lanes(dev):
+    """Three candidates of config 3's greedy search (the 144-point airline
+    series on its 256-point bucket, depth cap 3) with their fitted noise:
+    GE x (Periodic + GE) at the season's period, GE x (Periodic x
+    Periodic) at a period of 0.0072 (its argument reaches 436 rad), and
+    (GE x GE) + Periodic at 0.0010. Returns (nt, params, noise, ts, xs,
+    mask)."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    import chip_smoke
+    t, y = chip_smoke.airline_series(np)
+    data = A.GPModel(t, y, n_particles=1, device=dev, dtype=torch.float32,
+                     config=C.GPConfig(changepoints=False, max_depth=3)
+                     )._dataset()
+    GE, PER = C.GAMMA_EXPONENTIAL, C.PERIODIC
+    nt = torch.tensor([[C.TIMES, GE, C.PLUS, 0, 0, PER, GE],
+                       [C.TIMES, GE, C.TIMES, 0, 0, PER, PER],
+                       [C.PLUS, C.TIMES, PER, GE, GE, 0, 0]], device=dev)
+    pt = torch.zeros((3, 7, 3), device=dev)
+    pt[0, 1] = torch.tensor([1.17327428, 1.99673164, 0.360891074])
+    pt[0, 5] = torch.tensor([1.74146271, 0.0835936144, 0.238179117])
+    pt[0, 6] = torch.tensor([0.0386895649, 0.648562431, 0.351748019])
+    pt[1, 1] = torch.tensor([0.154668152, 1.99657381, 1.4347018])
+    pt[1, 5] = torch.tensor([1.93175769, 109.416458, 0.949725211])
+    pt[1, 6] = torch.tensor([1.64557528, 0.00723229954, 0.677288175])
+    pt[2, 2] = torch.tensor([2.44747281, 0.00101107231, 0.216142237])
+    pt[2, 3] = torch.tensor([2.42187834, 1.90847182, 0.0654922724])
+    pt[2, 4] = torch.tensor([1.16635513, 1.99598432, 0.323143035])
+    noise = torch.tensor([1.4278102e-4, 1.5061795e-4, 1.4743405e-4],
+                         device=dev)
+    return nt, pt, noise, data.ts, data.xs, data.mask
+
+
+def test_tape_bwd_error_within_its_terms_size(cuda):
+    """Kernel 5 on config 3's candidates with short periods and
+    GammaExponentials of gamma ~2 (the terms near the diagonal, where the
+    cotangent is largest, carry small exponents): each parameter's error
+    against the plain version in float64 on the same inputs <= 1e-5 of
+    the sum of its terms' magnitudes (chip_smoke.term_scale). The
+    gradient cancels within that sum, so its error relative to the
+    gradient is not the measure."""
+    import chip_smoke
+    D = 3
+    nt, pt, noise, ts, xs, mask = _short_period_lanes(cuda)
+    K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
+    _, alpha, wd, L = chol.chol_solve_strips(K, (xs * mask).expand(3, -1))
+    Ki, beta, _ = kinv.kinv_beta_strips(alpha, wd, L)
+    g = torch.ones(3, device=cuda)
+    pb, _ = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g, D)
+    pr, _ = cov_vjp.cov_tape_bwd_plain(nt, pt.double(), ts.double(),
+                                       mask.double(), Ki.double(),
+                                       beta.double(), g.double(), D)
+    assert bool(torch.isfinite(pr).all())
+    scale = chip_smoke.term_scale(torch, nt, pt, ts, mask, Ki, beta, D)
+    err = (pb.double() - pr).abs().flatten(1)
+    assert float(torch.where(scale > 0, err / scale, err).max()) <= 1e-5

@@ -32,6 +32,7 @@ def test_port_imports_without_jax():
     names = _all_modules()
     assert "autogp_tpu_torch.ops.cov" in names
     assert "autogp_tpu_torch.inference.smc" in names
+    assert "autogp_tpu_torch.inference.greedy" in names
     assert "autogp_tpu_torch.scripts.online" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -48,9 +49,11 @@ def test_port_imports_without_jax():
 
 
 def test_import_leaves_the_jax_package_out():
-    """`import autogp_tpu_torch` and its online script load no autogp_tpu
-    module (the eight JAX-free modules are copies, not re-exports)."""
+    """`import autogp_tpu_torch`, its greedy engine and its online script
+    load no autogp_tpu module (the eight JAX-free modules are copies, not
+    re-exports)."""
     code = ("import sys, autogp_tpu_torch\n"
+            "import autogp_tpu_torch.inference.greedy\n"
             "import autogp_tpu_torch.scripts.online\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'autogp_tpu' or m.startswith('autogp_tpu.'))\n"
