@@ -16,9 +16,11 @@ maybe_resample, fit_smc's callback) and the online forecasting script
 (`python3 -m autogp_tpu_torch.scripts.online`), on hand-written CUDA
 kernels: the covariance assembly, tape-driven and per-slot (ops/cov.py),
 the panel Cholesky (ops/chol.py), the K^-1 substitution (ops/kinv.py) and
-the assembly backwards (ops/cov_vjp.py). Entry points run on the card
-unless the caller passes device="cpu". Not ported yet: depth annealing and
-the mesh. This package imports neither jax nor autogp_tpu.
+the assembly backwards (ops/cov_vjp.py); depth-annealed SMC
+(inference/smc_depth.py) and the fixed-structure HMC experiment of
+BASELINE config 2 (`python3 -m autogp_tpu_torch.scripts.experiment_hmc`).
+Entry points run on the card unless the caller passes device="cpu". Not
+ported yet: the mesh. This package imports neither jax nor autogp_tpu.
 """
 
 from autogp_tpu_torch.config import GPConfig  # noqa: F401

@@ -19,7 +19,8 @@ and `gp_model_from_kernels` rebuild models from edited kernels, and
 `predict_mvn_sum` / `predict_sum` split a prediction into its
 sum-of-products components (GP-sum posterior, kernel 1 on the components).
 
-Not ported yet: depth annealing and the mesh.
+Depth-annealed SMC is `inference.smc_depth.run_smc_anneal_depth`, called
+directly as in the JAX package. Not ported yet: the mesh.
 """
 
 from __future__ import annotations

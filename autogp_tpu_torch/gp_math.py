@@ -329,15 +329,13 @@ def mvn_logpdf_masked_cvjp(K, x, mask, pregram: bool = False):
 
 def mvn_logpdf(mu, K, x):
     """Dense MVN log density [P] of x [p] or [P, p] under N(mu [P, p],
-    K [P, p, p]); NaN where K is not positive definite."""
-    L, info = torch.linalg.cholesky_ex(K)
-    d = (x - mu)[..., None]
-    alpha = torch.linalg.solve_triangular(L, d, upper=False)[..., 0]
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
-                             dim=-1)
-    out = -0.5 * (K.shape[-1] * LOG2PI + logdet
-                  + torch.sum(alpha * alpha, dim=-1))
-    return torch.where(info > 0, float("nan"), out)
+    K [P, p, p]) (lower triangle read), through the blocked driver of
+    ops/chol.py (kernel 2 on the card, its float64 trailing updates for
+    float32 K); NaN where K is not positive definite."""
+    from autogp_tpu_torch.ops import chol
+    r = (x - mu).expand(K.shape[:-1])
+    d, alpha = chol.chol_solve_diag(K, r.contiguous())
+    return mvn_logpdf_from_factor(d, alpha, torch.ones_like(r[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -388,9 +386,12 @@ def posterior_mvn_masked(node_type, params, noise, ts, xs, mask, ts_pred,
     the conditional covariance is L22 L22^T, positive semi-definite by
     construction; the explicit Schur complement goes indefinite in
     float32. `noise` and `noise_pred` are [P] (default noise). The joint
-    matrix has n + p rows for any p, so it takes a dense factorization
-    (NaN where it fails), as the reference's does."""
-    from autogp_tpu_torch.ops import cov
+    matrix has n + p rows for any p; it is factored whole (NaN where that
+    fails), as the reference's is, by the blocked driver of ops/chol.py,
+    whose float64 trailing updates keep a float32 joint accurate (a dense
+    float32 Cholesky, cholesky_ex, put the LML of BASELINE config 2's joint
+    gram 0.15-0.37 off on an NVIDIA H100; scripts/chol_ab.py)."""
+    from autogp_tpu_torch.ops import chol, cov
     if noise_pred is None:
         noise_pred = noise
     P, n, p = node_type.shape[0], ts.shape[0], ts_pred.shape[0]
@@ -404,11 +405,12 @@ def posterior_mvn_masked(node_type, params, noise, ts, xs, mask, ts_pred,
                             noise_pred[:, None].expand(P, p)], dim=1)
     J = K + torch.diag_embed(noise_diag)
     m_ext = torch.cat([mask, torch.ones_like(ts_pred)])
-    L, info = torch.linalg.cholesky_ex(masked_gram(J, m_ext))
-    L = torch.where((info > 0)[:, None, None], float("nan"), L)
-    alpha = torch.linalg.solve_triangular(
-        L[:, :n, :n], (xs * mask).expand(P, n)[..., None], upper=False)
-    mu = torch.matmul(L[:, n:, :n], alpha)[..., 0]
+    x_ext = torch.cat([xs * mask, torch.zeros_like(ts_pred)]).expand(P, -1)
+    # The forward solve's first n entries are L11^-1 (xs * mask).
+    L, alpha = chol.chol_solve(masked_gram(J, m_ext), x_ext.contiguous())
+    bad = ~torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(dim=-1)
+    L = torch.where(bad[:, None, None], float("nan"), L)
+    mu = torch.matmul(L[:, n:, :n], alpha[:, :n, None])[..., 0]
     L22 = L[:, n:, n:]
     cov_pred = torch.matmul(L22, L22.mT)
     return mu, 0.5 * (cov_pred + cov_pred.mT)

@@ -87,7 +87,14 @@ def _driver(K, x, want_l: bool, want_wd: bool = False):
     alpha, Wd or None); Wd [P, nb, B, B] stacks kernel 2's per-panel
     Lkk^-1 blocks (N a multiple of B only). Every entry runs this same
     code, so diag and alpha are bitwise the same whichever outputs are
-    kept. When B does not divide N the last panel is narrower."""
+    kept. When B does not divide N the last panel is narrower.
+
+    A float32 K keeps the trailing matrix, L21 and the solve in float64
+    between panels; each panel's diagonal block is rounded to float32 for
+    kernel 2. The Schur complements of an ill-conditioned gram cancel:
+    on BASELINE config 2's joint gram (condition ~6e5, N = 1000) float32
+    updates put the LML 0.05-0.18 off, float64 ones at most 0.01 (NVIDIA
+    H100, autogp_tpu_torch/scripts/chol_ab.py)."""
     P, N, _ = K.shape
     Bfull = min(N, BLOCK)
     if want_wd and N % Bfull != 0:
@@ -95,24 +102,26 @@ def _driver(K, x, want_l: bool, want_wd: bool = False):
                          f"{Bfull}")
     if backend.on_cuda(K):
         backend.require_ieee_f32()
+    acc = torch.float64 if K.dtype == torch.float32 else K.dtype
     nb = -(-N // Bfull)
-    A = K
-    xcur = x
+    A = K.to(acc)
+    xcur = x.to(acc)
     diags, alphas, wds = [], [], []
     L = torch.zeros_like(K) if want_l else None
     for k in range(nb):
         r0 = k * Bfull
         B = min(Bfull, N - r0)
-        Lkk, Winv = panel_factor(A[:, :B, :B])
-        a_k = torch.matmul(Winv, xcur[:, :B, None])[..., 0]
-        alphas.append(a_k)
+        Lkk, Winv = panel_factor(A[:, :B, :B].to(K.dtype))
+        W = Winv.to(acc)
+        a_k = torch.matmul(W, xcur[:, :B, None])[..., 0]
+        alphas.append(a_k.to(K.dtype))
         diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
         if want_wd:
             wds.append(Winv)
         if want_l:
             L[:, r0:r0 + B, r0:r0 + B] = Lkk
         if k + 1 < nb:
-            L21 = torch.matmul(A[:, B:, :B], Winv.mT)       # [P, m-B, B]
+            L21 = torch.matmul(A[:, B:, :B], W.mT)          # [P, m-B, B]
             # Trailing update; only its lower triangle is read later.
             A = torch.baddbmm(A[:, B:, B:], L21, L21.mT, alpha=-1.0)
             xcur = xcur[:, B:] - torch.matmul(L21, a_k[..., None])[..., 0]

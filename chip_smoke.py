@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SMC, online-forecasting, greedy-search and
-decomposition paths, HMC included, once on one NVIDIA GPU.
+"""Drive the PyTorch port's SMC, online-forecasting, greedy-search,
+decomposition, depth-annealing and fixed-structure HMC paths once on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -132,6 +133,27 @@ back to the CPU):
      the Y mean equals F_T + F_nT (normwise 1e-4); the 8 heaviest
      particles' means and covariances within 1e-3 (normwise) of a float64
      CPU run on the model carried over by to_dict / from_dict.
+ 15. depth: run_smc_anneal_depth on config 4's series (N = 1024,
+     transformed as GPModel transforms it), schedule [1, 2, 3, 4, 5], P =
+     64, n_mcmc = 10, n_hmc = 10, every launch counter reset just before:
+     kernels 1-5 must launch; validate_particles with round trips, finite
+     LMLs and normalized weights, the top 8 LMLs within 1e-3 of float64 on
+     the CPU, the first extension's weights (depth 1 -> 2, normalization
+     included) within 1e-3 (|lml_old| + |lml_new|) + 1e-3 of the same
+     function in float64 on the CPU on the same draws; then the posterior
+     oracle of tests/test_inference.py:347 at P = 4096
+     (autogp_tpu_torch.scripts.depth_oracle): ESS > 40, every structure
+     within 5 se + 0.03 of data-annealed SMC, total variation < 0.15
+     between the two, and each within total variation 0.10 of the exact
+     posterior;
+ 16. config2: BASELINE config 2 -- experiment_hmc.config2_sweeps (20
+     sweeps at N = 500, counters reset just before, final LML within 1e-3
+     of float64 on the CPU), experiment_hmc.run at its defaults (the
+     Bayes-rule oracle inside at the float32 tolerance, lp_true within
+     1e-3 of a float64 CPU run), kernels 1-5 at P = 1 on config 2's
+     [1, 512, 512] and kernels 1 and 5 on the experiment's [1, 256, 256],
+     and kernels 1 and 5 at [64, 1024, 1024] on heaps of 1, 3 and 15
+     slots, against their plain versions with the gates of phases 3-6.
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
@@ -141,7 +163,8 @@ of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
 special functions), with that pipe named (`pipe`), and its launches in
 config 3's greedy fit (`launches_config3`) and in phase 14's
 predict_mvn_sum (`launches_predict_mvn_sum`), each read from the row's own
-counter; the last line is the device JSON.
+counter, and in phases 15 and 16 (`launches_depth`, `launches_config2`);
+the last line is the device JSON.
 """
 
 import json
@@ -723,6 +746,447 @@ def decompose_phase(A, np, torch, model, ds_pred, quantiles):
           f"F_nT to {sum_err:.3e} (gate 1e-4); top 8 vs float64 CPU "
           f"({ref_s:.1f} s): mean {mean_err:.3e}, cov {cov_err:.3e} (gate "
           f"1e-3); Constant(0) pads transform to 0")
+    return launches
+
+
+def depth_posterior_oracle(np, torch):
+    """The posterior oracle of tests/test_inference.py:347-398 on the card
+    (autogp_tpu_torch.scripts.depth_oracle): depth-annealed SMC ([1, 2])
+    against data-annealed SMC ([4, 8, 12]) on the 12-point series, both
+    targeting p(structure | data) at max_depth 2 under one prior, and
+    each against the exact posterior (importance sampling from the
+    parameter prior, 200000 draws a structure); bucket 32, the dense
+    gradient route (kernels 1, 2, 5b). Gates: ESS > 40 each, every
+    structure within 5 se + 0.03, total variation < 0.15 between the two,
+    and < 0.10 from each to the exact posterior. The last gate holds the
+    extension weight's normalization on the old depth's support: with the
+    reference's weight the depth-annealed ensemble lay 0.156-0.172 from
+    the exact posterior, with the normalized one 0.025-0.054 (P = 4096,
+    seeds 5-7, NVIDIA H100, scripts/depth_oracle.py). It runs P = 4096:
+    at the JAX test's 1024 the ensembles' noise alone put the
+    depth-annealed one 0.056-0.109 from exact over seeds 5-8
+    (`--particles 1024`). Returns a message."""
+    from autogp_tpu_torch.ops import cov_vjp
+    from autogp_tpu_torch.scripts import depth_oracle as O
+    P = 4096
+    cov_vjp.unfused_launches = 0
+    fd, ess_d = O.depth_annealed(P, 5, "cuda", torch.float32)
+    fa, ess_a = O.data_annealed(P, 9, "cuda", torch.float32)
+    unfused = cov_vjp.unfused_launches
+    gap = O.structure_gap(fd, ess_d, fa, ess_a)
+    tv = O.total_variation(fd, fa)
+    t0 = time.perf_counter()
+    exact = O.exact_posterior("cuda", torch.float32)
+    exact_s = time.perf_counter() - t0
+    tv_d, tv_a = O.total_variation(fd, exact), O.total_variation(fa, exact)
+    if not (unfused > 0 and ess_d > 40 and ess_a > 40 and gap < 1.0
+            and tv < 0.15 and tv_d < 0.10 and tv_a < 0.10):
+        fail(f"depth oracle: 5b launches {unfused}, ESS {ess_d:.1f} / "
+             f"{ess_a:.1f} (gate 40), worst structure gap / bound {gap:.3f} "
+             f"(gate 1), total variation {tv:.4f} (gate 0.15), to the exact"
+             f" posterior {tv_d:.4f} depth-annealed and {tv_a:.4f} "
+             f"data-annealed (gate 0.10)")
+    return (f"posterior oracle at P={P} (dense route, {unfused} 5b "
+            f"launches): total variation {tv:.4f} (gate 0.15), worst "
+            f"structure gap / bound {gap:.3f} (gate 1), ESS {ess_d:.1f} "
+            f"depth-annealed, {ess_a:.1f} data-annealed; to the exact "
+            f"posterior ({exact_s:.1f} s) {tv_d:.4f} and {tv_a:.4f} (gate "
+            f"0.10)")
+
+
+def depth_phase(A, np, torch, t_days, y):
+    """Depth-annealed SMC on config 4's series (N = 1024, transformed as
+    GPModel transforms it): run_smc_anneal_depth(schedule=[1, 2, 3, 4,
+    5], P = 64, n_mcmc = 10, n_hmc = 10), the other arguments at their
+    defaults, every launch counter zeroed just before and read just after.
+    Gates: kernels 1, 2, 3, 4, 5 launch; validate_particles with round
+    trips; no NaN log weight, finite LMLs and normalized weights; the top
+    8 particles' LMLs within 1e-3 of a float64 CPU re-evaluation; the first
+    extension's weights (depth 1 -> 2) against extend_weight in float64 on
+    the CPU on the same draws and trees, |dw| <= 1e-3 (|lml_old| +
+    |lml_new|) + 1e-3 where both are finite; then the posterior oracle.
+    Returns the fit's launches by kernels-line row."""
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch.inference import smc, smc_depth
+    P, D_MAX = P_MAIN, 5
+    ts = A.LinearTransform.from_minmax(t_days, 0, 1).apply(t_days)
+    xs = A.LinearTransform.from_mean_width(y, 1).apply(y)
+    # The first extension's inputs and outputs, and CUDA events around
+    # every extension.
+    first, ext_ev = [], []
+    extend, extend_weight = smc_depth.extend, smc_depth.extend_weight
+
+    def recording_weight(*args):
+        out = extend_weight(*args)
+        if not first:
+            first.append((args, out))
+        return out
+
+    def timed_extend(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = extend(*args)
+        ev[1].record()
+        ext_ev.append(ev)
+        return out
+    smc_depth.extend, smc_depth.extend_weight = timed_extend, recording_weight
+    counters = row_counters()
+    rs = []
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        zero_counts(counters)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        parts, cfg = smc_depth.run_smc_anneal_depth(
+            gen, ts, xs, schedule=list(range(1, D_MAX + 1)), n_particles=P,
+            n_mcmc=10, n_hmc=10, round_stats=rs)
+        ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        smc_depth.extend, smc_depth.extend_weight = extend, extend_weight
+    launches = read_counts(counters)
+    fit_ms = ev[0].elapsed_time(ev[1])
+    ext_ms = sum(a.elapsed_time(b) for a, b in ext_ev)
+    path = ("cov_tape", "chol_panel", "linv_stats_wd", "kinv_beta_strips",
+            "cov_tape_bwd")
+    if min(launches[k] for k in path) <= 0:
+        fail(f"depth: a kernel of the path never launched: {launches}")
+    if (cfg.max_depth != D_MAX or parts.node_type.shape != (P, 31)
+            or parts.params.dtype != torch.float32
+            or parts.params.device.type != "cuda" or len(ext_ev) != 4):
+        fail("depth: wrong final config, heap, dtype, device or extension "
+             "count")
+    tables = M.prior_tables(cfg, "cuda", torch.float32)
+    smc.validate_particles(parts, cfg, tables=tables)
+    w = smc.normalized_weights(parts.log_weights)
+    if not (torch.isfinite(parts.lml).all() and torch.isfinite(w).all()):
+        fail("depth: non-finite LML or normalized weight")
+    n_dead = int(torch.isinf(parts.log_weights).sum())
+
+    # Top 8 by weight among the live particles, in float64 on the CPU.
+    f64 = torch.float64
+    data64 = smc.make_dataset(ts, xs, dtype=f64, device="cpu")
+    d64 = (data64.ts, data64.xs, data64.mask)
+    alive = (parts.lml > smc.BAD_LML).cpu().numpy()
+    top = [int(i) for i in np.argsort(-w.cpu().numpy()) if alive[i]][:8]
+    sel = torch.as_tensor(top, device="cuda")
+    lml_ref = M.lml(parts.node_type[sel].cpu(), parts.params[sel].cpu()
+                    .double(), parts.noise_z[sel].cpu().double(), *d64, cfg,
+                    M.prior_tables(cfg, "cpu", f64))
+    top_rel = float(((parts.lml[sel].cpu().double() - lml_ref).abs()
+                     / lml_ref.abs()).max())
+    if not top_rel <= 1e-3:
+        fail(f"depth: top-8 LMLs vs float64 CPU rel {top_rel:.3e}")
+
+    # The first extension again in float64 on the CPU.
+    t0 = time.perf_counter()
+    (nt, pz, nz, ext, data, cfg2, tab2, depth_old, biased), (
+        _, _, _, w_card) = first[0]
+
+    def cpu(t):
+        return t.cpu().double() if t.is_floating_point() else t.cpu()
+    ext64 = smc_depth.Extension(*(
+        type(f)(*map(cpu, f)) if isinstance(f, tuple) else cpu(f)
+        for f in ext))
+    tab64 = M.prior_tables(cfg2, "cpu", f64)
+    _, _, lml_new64, w64 = smc_depth.extend_weight(
+        cpu(nt), cpu(pz), cpu(nz), ext64, d64, cfg2, tab64, depth_old,
+        biased)
+    # The bound's scale: the old LMLs on the card (float32 is enough).
+    lml_old = M.lml(nt, pz, nz, *data, cfg2, tab2).cpu().double()
+    # The increment the driver adds: the weight less the backward
+    # kernel's log mass on the old support.
+    w_card = (w_card - smc_depth.detach_support_logprob(
+        ext.node_type, depth_old, tab2, biased)).cpu().double()
+    w64 = w64 - smc_depth.detach_support_logprob(ext64.node_type, depth_old,
+                                                 tab64, biased)
+    both = torch.isfinite(w64) & torch.isfinite(w_card)
+    dw = (w_card - w64).abs()
+    bnd = 1e-3 * (lml_old.abs() + lml_new64.abs()) + 1e-3
+    if int(both.sum()) < P // 2 or bool((dw > bnd)[both].any()):
+        worst = float((dw / bnd)[both].max()) if both.any() else float("nan")
+        fail(f"depth: first extension's weights vs float64 CPU: "
+             f"{int(both.sum())} finite in both, worst |dw| / bound "
+             f"{worst:.3e}")
+    w_msg = (f"first extension (depth 1 -> 2) vs extend_weight - "
+             f"detach_support_logprob in float64 on the CPU ({time.perf_counter() - t0:.1f} s): {int(both.sum())}"
+             f" of {P} finite in both ({int((~torch.isfinite(w_card)).sum())} "
+             f"not finite on the card, {int((~torch.isfinite(w64)).sum())} in"
+             f" float64), worst |dw| {float(dw[both].max()):.3e}, worst "
+             f"|dw| / bound {float((dw / bnd)[both].max()):.3e}")
+
+    oracle_msg = depth_posterior_oracle(np, torch)
+    mh = sum(r["mh_accepted"] for r in rs)
+    sweeps = sum(r["hmc_sweeps"] for r in rs)
+    hacc = sum(r["hmc_accepted"] for r in rs)
+    phase("depth", f"run_smc_anneal_depth(config 4's series N={len(ts)}, "
+          f"schedule 1..{D_MAX}, P={P}, n_mcmc=10, n_hmc=10) "
+          f"{fit_ms:.1f} ms (CUDA events), the 4 extensions {ext_ms:.1f} ms "
+          f"({100 * ext_ms / fit_ms:.2f}%); per depth (depth, ESS before "
+          f"resampling, resampled, MH accepts, HMC sweeps, HMC parameter "
+          f"accepts) " + ", ".join(
+              f"({r['depth']}, {r['ess']:.2f}, {r['resampled']}, "
+              f"{r['mh_accepted']}, {r['hmc_sweeps']}, {r['hmc_accepted']})"
+              for r in rs)
+          + f"; MH acceptance {mh}/{P * 10 * D_MAX} "
+          f"({mh / (P * 10 * D_MAX):.4f}), HMC parameter acceptance "
+          f"{hacc}/{sweeps} ({hacc / max(sweeps, 1):.4f}); launches "
+          f"{launches}; final ESS {float(smc.effective_sample_size(parts.log_weights)):.2f}, "
+          f"{n_dead} particles of weight 0, best LML "
+          f"{float(parts.lml.max()):.3f}; validate_particles ok; top-8 LMLs"
+          f" vs float64 CPU rel {top_rel:.3e} (gate 1e-3); {w_msg}; "
+          f"{oracle_msg}")
+    return launches
+
+
+def gate_failures(rows):
+    """The (label, error, gate) rows whose error is above its gate (or not
+    a number)."""
+    return [r for r in rows if not r[1] <= r[2]]
+
+
+def rows_text(rows):
+    return ", ".join(f"{lab} {err:.3e}" + (f" (gate {g:g})" if g < math.inf
+                                           else "") for lab, err, g in rows)
+
+
+def kernel5_rows(torch, label, nt, pt, ts, mask, kinv_lower, beta, depth):
+    """Kernel 5 against its plain version in float64 on the same inputs
+    (the float32 K^-1 and beta upcast), over the particles whose float64
+    reference is finite (at least half): each parameter's error within
+    1e-3 of its particle's largest gradient entry (phase 6's gate) plus
+    1e-5 of the sum of its terms' magnitudes (term_scale, the gate of
+    config 3's candidates); the noise gradient's <= 1e-3 of itself. Both
+    parts are reported alone. Neither part alone holds: on one-slot prior
+    trees the gradient cancels within terms 1e6 times its size, and the
+    kernel read 0.234 of the largest entry and 8.0e-8 of the terms' size;
+    on 15 slots it read up to 0.91 of an entry's terms' size and 1.2e-2
+    of the largest entry (NVIDIA H100 80GB HBM3, 700.00 W).
+    Plain version and scale in chunks of 8 particles."""
+    from autogp_tpu_torch.ops import cov_vjp
+    f64 = torch.float64
+    P = nt.shape[0]
+    g1 = torch.ones(P, device=nt.device)
+    pb, nb = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, kinv_lower, beta, g1,
+                                  depth)
+    pr, nr, scale = [], [], []
+    for s in range(0, P, 8):
+        sl = slice(s, s + 8)
+        p_, n_ = cov_vjp.cov_tape_bwd_plain(
+            nt[sl], pt[sl].to(f64), ts.to(f64), mask.to(f64),
+            kinv_lower[sl].to(f64), beta[sl].to(f64), g1[sl].to(f64), depth)
+        pr.append(p_)
+        nr.append(n_)
+        scale.append(term_scale(torch, nt[sl], pt[sl], ts, mask,
+                                kinv_lower[sl], beta[sl], depth))
+    pr, nr, scale = torch.cat(pr), torch.cat(nr), torch.cat(scale)
+    ok = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
+    err = (pb.double() - pr).abs().flatten(1)
+    top = pr.abs().flatten(1).amax(1, keepdim=True)
+    e_b = (err / (1e-3 * top + 1e-5 * scale))[ok]
+    e_p = (err / top)[ok]
+    e_s = torch.where(scale > 0, err / scale, err)[ok]
+    e_n = ((nb.double() - nr).abs() / nr.abs())[ok]
+
+    def worst(e):
+        return float(e.max()) if ok.any() else float("nan")
+    inf = float("inf")
+    return [(f"{label} kernel 5 particles without a finite f64 reference",
+             float((~ok).sum()), P // 2),
+            (f"{label} kernel 5 pbar / (1e-3 max|pbar| + 1e-5 terms' size)",
+             worst(e_b), 1.0),
+            (f"{label} kernel 5 pbar / max|pbar|", worst(e_p), inf),
+            (f"{label} kernel 5 pbar / terms' size", worst(e_s), inf),
+            (f"{label} kernel 5 nbar", worst(e_n), 1e-3)]
+
+
+def kernels_at_one_particle(torch, gen):
+    """Kernels 1-5 at P = 1 against their plain versions, with the gates of
+    phases 1-6, at config 2's shapes: on [1, 512, 512] (config2_sweeps:
+    Linear + Periodic at N = 500, a 7-slot heap) kernel 1 <= 1e-5 of
+    plain; the driver's factor of a well-conditioned SPD matrix <= 1e-4
+    of float64; kinv_beta_strips and linv_stats_wd on it <= 1e-4 (K^-1,
+    beta) and 1e-5 (||L^-1||^2) of plain in float64, 0 above the diagonal
+    blocks; kernel 5 on config 2's gram (kernel5_rows). On [1, 256, 256]
+    (experiment_hmc.run's defaults: bench 2's 200 observed points, a
+    15-slot heap) kernels 1 and 5 again. Launches kernels 1 and 5 twice,
+    kernel 2 14 times (panels of three chol_solve_strips calls and one
+    chol_solve), linv_stats_wd once, kinv_beta_strips 3 times. Returns
+    (label, error, gate) rows."""
+    import numpy as np
+    from autogp_tpu_torch import GPConfig
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch import tree as T
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.ops import chol, cov, kinv
+    from autogp_tpu_torch.scripts import experiment_hmc as X
+    f32, f64 = torch.float32, torch.float64
+    ts_np, xs_np, node, cfg = X.config2_problem()
+    cfg_x = GPConfig(changepoints=True, max_depth=4)
+    ts_x, xs_x, _, _ = X.simulate(2, 1000, 200, np.random.default_rng(0),
+                                  cfg_x)
+    node_x, noise_x = X.BENCHMARKS[2]
+    problems = (
+        ("[1, 512, 512]", ts_np, xs_np, node, cfg, 0.1),
+        ("[1, 256, 256]", ts_x, xs_x, node_x, cfg_x, float(
+            M.untransform_param("noise", noise_x, cfg_x))))
+    rows = []
+    for label, t_np, x_np, node_, cfg_, nz in problems:
+        tab = M.prior_tables(cfg_, "cuda", f32)
+        nt_np, pz_np = T.node_to_tensor(node_, cfg_)
+        nt = torch.as_tensor(nt_np, device="cuda")[None]
+        pt = M.transform_params(nt, torch.as_tensor(
+            pz_np, dtype=f32, device="cuda")[None], tab)
+        noise = M.transform_noise(torch.full((1,), nz, device="cuda"), cfg_)
+        data = smc.make_dataset(t_np, x_np, dtype=f32, device="cuda")
+        ts, xs, mask = data.ts, data.xs, data.mask
+        N, D = ts.shape[0], cfg_.depth_cap
+        K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, D, True, True)
+        Kp = cov.cov_tape_plain(nt, pt, noise, ts, ts, mask, mask, D, True,
+                                True)
+        rows.append((f"{label} kernel 1", normwise_rel(K, Kp), 1e-5))
+        _, a_c, wd_c, L_c = chol.chol_solve_strips(K, xs.expand(1, N))
+        Ki_c, beta_c, _ = kinv.kinv_beta_strips(a_c, wd_c, L_c)
+        rows += kernel5_rows(torch, label, nt, pt, ts, mask, Ki_c, beta_c, D)
+    N = 512
+    X64 = torch.randn(1, N, N, generator=gen, device="cuda", dtype=f64)
+    S64 = X64 @ X64.mT / N + torch.eye(N, device="cuda", dtype=f64)
+    x64 = torch.randn(1, N, generator=gen, device="cuda", dtype=f64)
+    L, a = chol.chol_solve(torch.tril(S64).float(), x64.float())
+    Lr = torch.linalg.cholesky(S64)
+    ar = torch.linalg.solve_triangular(Lr, x64[..., None],
+                                       upper=False)[..., 0]
+    _, a_s, wd_s, L_s = chol.chol_solve_strips(torch.tril(S64).float(),
+                                               x64.float())
+    Ki, beta, fro = kinv.kinv_beta_strips(a_s, wd_s, L_s)
+    beta_s, fro_s = kinv.linv_stats_wd(L_s, a_s, wd_s)
+    Kir, br, fr = kinv.kinv_beta_plain(L_s.double(), a_s.double())
+    blk = torch.arange(N, device="cuda") // min(N, chol.BLOCK)
+    upper = float((Ki[:, blk[None, :] > blk[:, None]] != 0).sum())
+    return rows + [
+        ("[1, 512, 512] driver vs f64", max(normwise_rel(L, Lr),
+                                            normwise_rel(a, ar)), 1e-4),
+        ("linv_stats_wd beta", normwise_rel(beta_s, br), 1e-4),
+        ("linv_stats_wd fro", float(((fro_s.double() - fr) / fr).abs()
+                                    .max()), 1e-5),
+        ("kinv_beta_strips K^-1", normwise_rel(torch.tril(Ki),
+                                               torch.tril(Kir)), 1e-4),
+        ("kinv_beta_strips beta", normwise_rel(beta, br), 1e-4),
+        ("kinv_beta_strips fro", float(((fro.double() - fr) / fr).abs()
+                                       .max()), 1e-5),
+        ("kinv_beta_strips entries above the diagonal blocks", upper, 0)]
+
+
+def small_heap_rows(torch, gen, depth):
+    """Kernels 1 and 5 on 64 prior trees of depth cap `depth` (heaps of 2^
+    depth - 1 slots, as the depth run's rounds give them) at [64, 1024,
+    1024], 768 points active: kernel 1 <= 1e-5 of plain; kernel 5 on the
+    kernels' own K^-1 and beta of those grams (kernel5_rows). Returns
+    (label, error, gate) rows."""
+    from autogp_tpu_torch import config as C
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch.ops import chol, cov, kinv
+    f32 = torch.float32
+    n_act = 3 * N_MAIN // 4
+    ts = torch.zeros(N_MAIN, device="cuda")
+    ts[:n_act] = torch.linspace(0, 1, n_act, device="cuda")
+    mask = (torch.arange(N_MAIN, device="cuda") < n_act).float()
+    xs = torch.sin(12 * ts) * mask
+    cfg = C.GPConfig(max_depth=depth)
+    tab = M.prior_tables(cfg, "cuda", f32)
+    nt, pz = M.sample_tree(gen, P_MAIN, tab, f32, "cuda")
+    pt = M.transform_params(nt, pz, tab)
+    nz = M.transform_noise(torch.randn(P_MAIN, generator=gen,
+                                       device="cuda"), cfg)
+    K = cov.cov_tape(nt, pt, nz, ts, ts, mask, mask, depth, True, True)
+    Kp = cov.cov_tape_plain(nt, pt, nz, ts, ts, mask, mask, depth, True,
+                            True)
+    label = f"M={nt.shape[1]}"
+    rows = [(f"{label} kernel 1", normwise_rel(K, Kp), 1e-5)]
+    del Kp
+    _, a, wd, L = chol.chol_solve_strips(K, xs.expand(P_MAIN, -1))
+    del K
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    del L, wd
+    return rows + kernel5_rows(torch, label, nt, pt, ts, mask, Ki, beta,
+                               depth)
+
+
+def config2_phase(A, np, torch):
+    """BASELINE config 2 on the card: (a) config2_sweeps (20 sweeps at N =
+    500 on the 512 bucket, one particle), every launch counter zeroed just
+    before and read just after (the warm-up and the timed call), its final
+    LML within 1e-3 of float64 on the CPU; (b) experiment_hmc.run(bench=2,
+    n=1000, n_obs=200, n_steps=100, seed=0) with its Bayes-rule oracle at
+    the float32 tolerance inside, lp_true within 1e-3 of the float64 CPU
+    run's; (c) kernels_at_one_particle, and small_heap_rows at depth caps
+    1, 2 and 4 (1-, 3- and 15-slot heaps). Returns (a)'s launches by
+    kernels-line row."""
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.scripts import experiment_hmc as X
+    counters = row_counters()
+    zero_counts(counters)
+    r = X.config2_sweeps("cuda")
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    path = ("cov_tape", "chol_panel", "linv_stats_wd", "kinv_beta_strips",
+            "cov_tape_bwd")
+    if min(launches[k] for k in path) <= 0:
+        fail(f"config2: a kernel of the path never launched: {launches}")
+    ts, xs, _, cfg = X.config2_problem()
+    data64 = smc.make_dataset(ts, xs, dtype=torch.float64, device="cpu")
+    lml_ref = float(M.lml(
+        r["node_type"].cpu(), r["params_z"].cpu().double(),
+        r["noise_z"].cpu().double(), data64.ts, data64.xs, data64.mask,
+        cfg, M.prior_tables(cfg, "cpu", torch.float64))[0])
+    lml_card = float(r["lml"][0])
+    rel2 = abs(lml_card - lml_ref) / abs(lml_ref)
+    if not rel2 <= 1e-3:
+        fail(f"config2: final LML {lml_card} vs float64 CPU {lml_ref}")
+    n_grad = r["n_sweeps"] * 22
+    t0 = time.perf_counter()
+    m = X.run(bench=2, n=1000, n_obs=200, n_steps=100, seed=0,
+              verbose=False)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m64 = X.run(bench=2, n=1000, n_obs=200, n_steps=1, seed=0,
+                verbose=False, device="cpu")
+    ref_s = time.perf_counter() - t0
+    lp_rel = abs(m["lp_true"] - m64["lp_true"]) / abs(m64["lp_true"])
+    if not lp_rel <= 1e-3:
+        fail(f"config2: lp_true {m['lp_true']} vs float64 CPU "
+             f"{m64['lp_true']} (rel {lp_rel:.3e})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261017)
+    rows = kernels_at_one_particle(torch, gen)
+    for depth in (1, 2, 4):
+        rows += small_heap_rows(torch, gen, depth)
+    if gate_failures(rows):
+        fail(f"config2: kernels at P=1 or on small heaps vs plain: "
+             f"{rows_text(gate_failures(rows))}")
+    k_msg = (f"kernels at P=1 and on M-slot heaps at [{P_MAIN}, {N_MAIN}, "
+             f"{N_MAIN}] vs plain: {rows_text(rows)}")
+    phase("config2", f"(a) config2_sweeps: {r['n_sweeps']} sweeps (L=10) "
+          f"at N=500 "
+          f"{r['ms']:.1f} ms (CUDA events, after a warm-up call), "
+          f"{r['ms'] / r['n_sweeps']:.3f} ms per sweep, "
+          f"{r['ms'] / n_grad:.4f} ms per gradient ({n_grad}: 11 parameter "
+          f"and 11 noise a sweep); parameter accepts {r['n_accept']}/"
+          f"{r['n_sweeps']}; launches (warm-up and timed call) {launches}; "
+          f"final LML {lml_card:.4f} vs float64 CPU {lml_ref:.4f} (rel "
+          f"{rel2:.3e}, gate 1e-3); (b) experiment_hmc.run(bench=2, n=1000,"
+          f" n_obs=200, n_steps=100) {run_s:.1f} s: Bayes-rule oracle |lp_"
+          f"true - lp_bayes| {abs(m['lp_true'] - m['lp_bayes']):.4e} (gate "
+          f"{max(1e-4 * abs(m['lp_bayes']), 3e-4 * 800):.4e}), lp_true "
+          f"{m['lp_true']:.4f} vs float64 CPU {m64['lp_true']:.4f} (rel "
+          f"{lp_rel:.3e}, gate 1e-3; {ref_s:.1f} s), acceptance "
+          f"{m['acc_rate']:.2f}, lp_test {m['lp_init']:.3f} -> "
+          f"{m['lp_final']:.3f} (true {m['lp_true']:.3f}), lml "
+          f"{m['lml_init']:.3f} -> {m['lml_final']:.3f}, "
+          f"{m['ms_per_step']:.2f} ms per step; (c) {k_msg}")
     return launches
 
 
@@ -1934,6 +2398,12 @@ def main():
     launches_decomp = decompose_phase(A, np, torch, model8, ds_future,
                                       [.1, .5, .9])
 
+    # ---- 15. depth: depth-annealed SMC on config 4's series ------------
+    launches_depth = depth_phase(A, np, torch, t_days, y)
+
+    # ---- 16. config2: HMC on a fixed structure ------------------------
+    launches_c2 = config2_phase(A, np, torch)
+
     # Each kernel's launches are those of the path that is its own: the
     # config-4 fit (phase 8) for the first five, the online run (phase 12)
     # for the unfused backward, the dense_grad drive of cov_matrix_diff(
@@ -1954,7 +2424,9 @@ def main():
                 "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "pipe": bnd[2], "library_ms": lib_ms,
                 "launches_config3": launches_c3[name],
-                "launches_predict_mvn_sum": launches_decomp[name]}
+                "launches_predict_mvn_sum": launches_decomp[name],
+                "launches_depth": launches_depth[name],
+                "launches_config2": launches_c2[name]}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",

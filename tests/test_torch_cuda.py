@@ -808,3 +808,85 @@ def test_tape_bwd_error_within_its_terms_size(cuda):
     scale = chip_smoke.term_scale(torch, nt, pt, ts, mask, Ki, beta, D)
     err = (pb.double() - pr).abs().flatten(1)
     assert float(torch.where(scale > 0, err / scale, err).max()) <= 1e-5
+
+
+def test_kernels_at_one_particle(cuda):
+    """Kernels 1-5 with a batch of one, at config 2's shapes, against their
+    plain versions with chip_smoke's gates (chip_smoke.
+    kernels_at_one_particle): [1, 512, 512] (config2_sweeps) and
+    [1, 256, 256] (experiment_hmc.run's defaults), and the launches that
+    check makes."""
+    import chip_smoke
+    from autogp_tpu_torch.ops import kinv as KV
+    before = (cov.launches, chol.launches, KV.stats_launches,
+              KV.strips_launches, cov_vjp.launches)
+    rows = chip_smoke.kernels_at_one_particle(
+        torch, torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert not chip_smoke.gate_failures(rows), chip_smoke.rows_text(rows)
+    after = (cov.launches, chol.launches, KV.stats_launches,
+             KV.strips_launches, cov_vjp.launches)
+    assert [b - a_ for a_, b in zip(before, after)] == [2, 14, 1, 3, 2]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_cov_kernel_small_heaps(cuda, depth):
+    """Kernels 1 and 5 on 64 prior trees with heaps of one, three and 15
+    slots (depth caps 1, 2 and 4, as the depth-annealed fit's rounds give
+    them) at [64, 1024, 1024], 768 points active, against their plain
+    versions with chip_smoke's gates (chip_smoke.small_heap_rows)."""
+    import chip_smoke
+    before = (cov.launches, cov_vjp.launches)
+    rows = chip_smoke.small_heap_rows(
+        torch, torch.Generator(device=cuda).manual_seed(depth), depth)
+    torch.cuda.synchronize()
+    assert rows[0][0] == f"M={(1 << depth) - 1} kernel 1"
+    assert not chip_smoke.gate_failures(rows), chip_smoke.rows_text(rows)
+    assert (cov.launches, cov_vjp.launches) == (before[0] + 1,
+                                                before[1] + 1)
+
+
+def test_depth_annealing_on_card_rescored_on_cpu(cuda):
+    """A small run_smc_anneal_depth on the card (schedule [1, 2, 3], 40
+    points on the 64 bucket: the fused route, kernels 1-5): valid trees,
+    finite LMLs, and the heaviest particles' LMLs within 1e-3 of float64
+    on the CPU."""
+    import numpy as np
+    from autogp_tpu_torch.inference import smc, smc_depth
+    rng = np.random.default_rng(0)
+    ts = np.linspace(0, 1, 40)
+    xs = np.sin(6 * ts) + 0.1 * rng.standard_normal(40)
+    before = (cov.launches, chol.launches, kinv.stats_launches,
+              kinv.strips_launches, cov_vjp.launches)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    parts, cfg = smc_depth.run_smc_anneal_depth(
+        gen, ts, xs, [1, 2, 3], n_particles=16, n_mcmc=2, n_hmc=2)
+    after = (cov.launches, chol.launches, kinv.stats_launches,
+             kinv.strips_launches, cov_vjp.launches)
+    assert all(b > a for a, b in zip(before, after))
+    assert parts.params.dtype == torch.float32
+    smc.validate_particles(parts, cfg)
+    live = parts.lml > smc.BAD_LML
+    data = smc.make_dataset(ts, xs, dtype=torch.float64, device="cpu")
+    ref = TM.lml(parts.node_type[live].cpu(),
+                 parts.params[live].cpu().double(),
+                 parts.noise_z[live].cpu().double(), data.ts, data.xs,
+                 data.mask, cfg, TM.prior_tables(cfg, "cpu", torch.float64))
+    rel = (parts.lml[live].cpu().double() - ref).abs() / ref.abs()
+    assert float(rel.max()) <= 1e-3
+
+
+def test_config2_sweeps_on_card_rescored_on_cpu(cuda):
+    """config2_sweeps (BASELINE config 2, 20 sweeps at N = 500): every
+    sweep runs, the final LML within 1e-3 of float64 on the CPU."""
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.scripts import experiment_hmc
+    r = experiment_hmc.config2_sweeps(cuda)
+    assert r["n_sweeps"] == 20 and r["ms"] > 0
+    ts, xs, _, cfg = experiment_hmc.config2_problem()
+    data = smc.make_dataset(ts, xs, dtype=torch.float64, device="cpu")
+    ref = float(TM.lml(r["node_type"].cpu(), r["params_z"].cpu().double(),
+                       r["noise_z"].cpu().double(), data.ts, data.xs,
+                       data.mask, cfg,
+                       TM.prior_tables(cfg, "cpu", torch.float64))[0])
+    assert abs(float(r["lml"][0]) - ref) <= 1e-3 * abs(ref)

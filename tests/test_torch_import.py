@@ -34,6 +34,8 @@ def test_port_imports_without_jax():
     assert "autogp_tpu_torch.inference.smc" in names
     assert "autogp_tpu_torch.inference.greedy" in names
     assert "autogp_tpu_torch.scripts.online" in names
+    assert "autogp_tpu_torch.inference.smc_depth" in names
+    assert "autogp_tpu_torch.scripts.experiment_hmc" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -49,14 +51,18 @@ def test_port_imports_without_jax():
 
 
 def test_import_leaves_the_jax_package_out():
-    """`import autogp_tpu_torch`, its greedy engine and its online script
-    load no autogp_tpu module (the eight JAX-free modules are copies, not
+    """`import autogp_tpu_torch`, its greedy and depth-annealing engines,
+    its online script and its HMC experiment load neither jax nor any
+    autogp_tpu module (the eight JAX-free modules are copies, not
     re-exports)."""
     code = ("import sys, autogp_tpu_torch\n"
             "import autogp_tpu_torch.inference.greedy\n"
+            "import autogp_tpu_torch.inference.smc_depth\n"
             "import autogp_tpu_torch.scripts.online\n"
+            "import autogp_tpu_torch.scripts.experiment_hmc\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'autogp_tpu' or m.startswith('autogp_tpu.'))\n"
+            "             if m in ('jax', 'autogp_tpu')\n"
+            "             or m.startswith(('jax.', 'autogp_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
