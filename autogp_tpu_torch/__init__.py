@@ -18,9 +18,12 @@ kernels: the covariance assembly, tape-driven and per-slot (ops/cov.py),
 the panel Cholesky (ops/chol.py), the K^-1 substitution (ops/kinv.py) and
 the assembly backwards (ops/cov_vjp.py); depth-annealed SMC
 (inference/smc_depth.py) and the fixed-structure HMC experiment of
-BASELINE config 2 (`python3 -m autogp_tpu_torch.scripts.experiment_hmc`).
-Entry points run on the card unless the caller passes device="cpu". Not
-ported yet: the mesh. This package imports neither jax nor autogp_tpu.
+BASELINE config 2 (`python3 -m autogp_tpu_torch.scripts.experiment_hmc`);
+and the particle mesh (parallel/mesh.py): `GPModel(..., mesh=m)` shards
+the particles over the ranks of a torch.distributed group, each rank
+ending with its rows of the unsharded result. Entry points run on the
+card unless the caller passes device="cpu". This package imports neither
+jax nor autogp_tpu.
 """
 
 from autogp_tpu_torch.config import GPConfig  # noqa: F401

@@ -20,7 +20,17 @@ and `gp_model_from_kernels` rebuild models from edited kernels, and
 sum-of-products components (GP-sum posterior, kernel 1 on the components).
 
 Depth-annealed SMC is `inference.smc_depth.run_smc_anneal_depth`, called
-directly as in the JAX package. Not ported yet: the mesh.
+directly as in the JAX package.
+
+`GPModel(..., mesh=m)` shards the particles over the ranks of a
+torch.distributed group (parallel/mesh.py, autogp_tpu/api.py:82-186):
+`model.particles` holds the rank's rows on the mesh's device, and
+`fit_smc`, the MCMC fits and the streaming entry points run on them,
+each rank ending with its rows of the unsharded result when every rank
+has called `seed` with the same value. The accessors, the predict family
+and `to_dict` gather the batch and run the unsharded code, so every rank
+gets the unsharded answer. Every rank must make the same calls in the
+same order: they hold collectives.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from autogp_tpu_torch.distributions import (MixtureMvNormal, MvNormal,
 from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import smc
 from autogp_tpu_torch.inference.hmc import HMCConfig
+from autogp_tpu_torch.parallel import mesh as pmesh
 
 # ---------------------------------------------------------------------------
 # Global seeding (api.jl:34-37; autogp_tpu/api.py:38-49)
@@ -91,19 +102,50 @@ def to_numeric(ds) -> np.ndarray:
 # GPModel (api.jl:83-112)
 # ---------------------------------------------------------------------------
 
+def _normalize_mesh(mesh, device) -> Optional[pmesh.ParticleMesh]:
+    """GPModel's `mesh` argument as a ParticleMesh (autogp_tpu/api.py:
+    82-92): None; a ParticleMesh, whose device the model takes; or an int
+    that must equal the default group's world size, the mesh then on
+    `device` (default "cuda")."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, pmesh.ParticleMesh):
+        if device is not None:
+            raise ValueError("with a ParticleMesh, pass the device to "
+                             "particle_mesh, not to GPModel")
+        return mesh
+    m = pmesh.particle_mesh(device="cuda" if device is None else device)
+    if mesh != m.size:
+        raise ValueError(f"mesh={mesh} but the process group has {m.size} "
+                         f"ranks")
+    return m
+
+
 class GPModel:
     """Weighted particle collection over GP kernel structures + parameters.
 
     `device` defaults to "cuda": without a card that raises, and nothing
     falls back to the CPU; pass device="cpu" for the plain versions.
     `dtype` defaults to float32 on CUDA (the kernels' type) and float64
-    on the CPU (the parity type)."""
+    on the CPU (the parity type).
+
+    `mesh` (optional): a `parallel.mesh.ParticleMesh` over the ranks of
+    an initialized torch.distributed group, or an int equal to the
+    default group's world size. `particles` then holds this rank's
+    n_particles / size rows on the mesh's device, and results equal the
+    unsharded program's; an n_particles the size does not divide raises
+    ValueError."""
 
     def __init__(self, ds, y, n_particles: int = 8,
-                 config: Optional[GPConfig] = None, *, device="cuda",
-                 dtype: Optional[torch.dtype] = None,
+                 config: Optional[GPConfig] = None, *, device=None,
+                 dtype: Optional[torch.dtype] = None, mesh=None,
                  _defer_init: bool = False):
-        self.device = backend.resolve_device(device)
+        self.mesh = _normalize_mesh(mesh, device)
+        if self.mesh is not None:
+            self.mesh.rows(n_particles)   # raises unless size divides P
+            self.device = self.mesh.device
+        else:
+            self.device = backend.resolve_device(device or "cuda")
         self.dtype = dtype or (torch.float32 if self.device.type == "cuda"
                                else torch.float64)
         self.config = config or GPConfig()
@@ -117,15 +159,17 @@ class GPModel:
         if not _defer_init:
             self.particles = smc.initialize(
                 _next_generator(self.device), n_particles, self._dataset(),
-                self.config, self.tables)
+                self.config, self.tables, mesh=self.mesh)
 
     @classmethod
     def _from_state(cls, particles: smc.Particles, config: GPConfig, ds, y,
-                    ds_transform, y_transform) -> "GPModel":
-        """A model over (ds, y) holding `particles` as they are, with the
-        given transforms (the intermediate models of callbacks.py)."""
+                    ds_transform, y_transform, mesh=None) -> "GPModel":
+        """A model over (ds, y) holding the whole batch `particles` as they
+        are (the intermediate models of callbacks.py), with the given
+        transforms; with a ParticleMesh, this rank's rows of them."""
         m = cls.__new__(cls)   # no transforms fitted: ds may be empty
-        m.device = particles.params.device
+        m.mesh = mesh
+        m.device = particles.params.device if mesh is None else mesh.device
         m.dtype = particles.params.dtype
         m.config = config
         m.tables = M.prior_tables(config, m.device, m.dtype)
@@ -133,7 +177,8 @@ class GPModel:
         m.y = np.asarray(y, dtype=np.float64)
         m.ds_transform, m.y_transform = ds_transform, y_transform
         m.round_stats = []
-        m.particles = particles
+        m.particles = (particles if mesh is None
+                       else pmesh.shard_particles(particles, mesh))
         return m
 
     @property
@@ -142,16 +187,34 @@ class GPModel:
 
     @particles.setter
     def particles(self, p: smc.Particles):
-        # Every state change flows through here: drop the cached factor.
+        # Every state change flows through here: drop the cached factor
+        # and the cached gather.
         self._particles = p
         self._train_factor_cache = None
+        self._all_cache = None
+
+    def _all(self) -> smc.Particles:
+        """The whole batch: the particles, or under a mesh their gather
+        from every rank (a collective), cached until the next state
+        change."""
+        if self.mesh is None:
+            return self.particles
+        if self._all_cache is None:
+            self._all_cache = pmesh.gather_particles(self.particles,
+                                                     self.mesh)
+        return self._all_cache
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-particle tensor of the rank's rows, over the whole batch."""
+        return x if self.mesh is None else self.mesh.gather(x)
 
     def _train_factor(self):
-        """Per-particle (L, alpha) of the training block, cached until the
-        next state change (autogp_tpu/api.py:145-164)."""
+        """Per-particle (L, alpha) of the training block over the whole
+        batch, cached until the next state change (autogp_tpu/api.py:
+        145-164)."""
         if self._train_factor_cache is None:
             data = self._dataset()
-            p = self.particles
+            p = self._all()
             params_t = M.transform_params(p.node_type, p.params, self.tables)
             noise = M.transform_noise(p.noise_z, self.config)
             self._train_factor_cache = gp_math.train_cholesky_masked(
@@ -178,22 +241,24 @@ class GPModel:
 
     @property
     def num_particles(self) -> int:
-        return self.particles.n_particles
+        """The whole batch's P, on every rank of a mesh."""
+        return self.particles.n_particles * (1 if self.mesh is None
+                                             else self.mesh.size)
 
     def particle_weights(self) -> np.ndarray:
         return smc.normalized_weights(
-            self.particles.log_weights).cpu().numpy().astype(np.float64)
+            self._all().log_weights).cpu().numpy().astype(np.float64)
 
     def effective_sample_size(self) -> float:
-        return float(smc.effective_sample_size(self.particles.log_weights))
+        return float(smc.effective_sample_size(self._all().log_weights))
 
     def log_marginal_likelihood_estimate(self) -> float:
         return float(self.particles.log_ml_est)
 
     def covariance_kernels(self, reparameterize: bool = True
                            ) -> List[GP.Node]:
-        nts = self.particles.node_type.cpu().numpy()
-        pzs = self.particles.params.cpu().numpy().astype(np.float64)
+        nts = self._all().node_type.cpu().numpy()
+        pzs = self._all().params.cpu().numpy().astype(np.float64)
         ks = [T.tensor_to_node(nts[i], pzs[i], self.config)
               for i in range(self.num_particles)]
         if reparameterize:
@@ -204,7 +269,7 @@ class GPModel:
 
     def observation_noise_variances(self, reparameterize: bool = True
                                     ) -> np.ndarray:
-        nz = self.particles.noise_z.cpu().numpy().astype(np.float64)
+        nz = self._all().noise_z.cpu().numpy().astype(np.float64)
         p = self.config.prior["wildcard"]
         noises = np.exp(p["mu"] + p["sigma"] * nz) + C.MODEL_JITTER
         if reparameterize:
@@ -269,7 +334,9 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
     reference's option, autogp_tpu/api.py:283) runs each HMC sweep on the
     live particles only; False runs it on all P, the live ones kept (the
     reference's chunk width P, `_hmc_chunk_width(P, False)`). Both give
-    the same fit."""
+    the same fit. Under a mesh the batch stays sharded for the whole run
+    and `round_stats` hold the sums over the ranks; the callback gets the
+    gathered particles."""
     n = len(model.ds)
     model.round_stats = []
     perm = _GLOBAL["rng"].permutation(n) if shuffle else np.arange(n)
@@ -282,7 +349,7 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
         adaptive_resampling=adaptive_resampling,
         adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
         check=check, round_stats=model.round_stats, callback_fn=callback_fn,
-        hmc_compact=hmc_compact)
+        hmc_compact=hmc_compact, mesh=model.mesh)
     return model
 
 
@@ -295,18 +362,21 @@ def mcmc_structure(model: GPModel, n_mcmc: int, n_hmc: int,
                    verbose: bool = False, check: bool = False):
     """n_mcmc involutive MCMC steps on all particles, each followed by
     n_hmc HMC sweeps on the particles that accepted it (n_exit defaults
-    to 2). Returns the per-particle count of accepted moves [P]."""
+    to 2). Returns the per-particle count of accepted moves [P] (the
+    whole batch under a mesh)."""
     hc = _hmc_config(hmc_config, default_n_exit=2)
     particles, n_acc, _, _, ok = smc.rejuvenate_structure(
         _next_generator(model.device), model.particles, model._dataset(),
         model.config, model.tables, n_mcmc, n_hmc, biased, hmc_cfg=hc,
-        check=check)
+        check=check, mesh=model.mesh)
     model.particles = particles
     if check:
-        assert bool(ok.all()), "per-move involution round trip failed"
+        assert bool(model._gather(ok).all()), \
+            "per-move involution round trip failed"
         smc.validate_particles(particles, model.config, tables=model.tables,
-                               gen=_next_generator(model.device))
-    return n_acc.cpu().numpy()
+                               gen=_next_generator(model.device),
+                               mesh=model.mesh)
+    return model._gather(n_acc).cpu().numpy()
 
 
 def fit_mcmc(model: GPModel, n_mcmc: int, n_hmc: int, biased: bool = False,
@@ -331,16 +401,16 @@ def mcmc_parameters(model: GPModel, n_hmc: int, hmc_config=None,
                     verbose: bool = False, check: bool = False):
     """n_hmc HMC sweeps on all particles (api.jl:385-393; n_exit defaults
     to n_hmc). Returns the per-particle count of accepted parameter
-    trajectories [P]."""
+    trajectories [P] (the whole batch under a mesh)."""
     hc = _hmc_config(hmc_config, default_n_exit=n_hmc)
     p = model.particles
     data = model._dataset()
     pz, nz, lml, n_acc, _ = hmc_mod.rejuvenate_parameters(
         _next_generator(model.device), p.node_type, p.params, p.noise_z,
         p.lml, (data.ts, data.xs, data.mask), model.config, model.tables,
-        n_hmc, hc, model.config.noise is None)
+        n_hmc, hc, model.config.noise is None, mesh=model.mesh)
     model.particles = p.replace(params=pz, noise_z=nz, lml=lml)
-    return n_acc.cpu().numpy()
+    return model._gather(n_acc).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +447,8 @@ def maybe_resample(model: GPModel, ess_threshold: float) -> bool:
     """Multinomial resampling if the ESS is below `ess_threshold`
     (api.jl:472-479). Returns whether it resampled."""
     model.particles, did = smc.maybe_resample(
-        _next_generator(model.device), model.particles, ess_threshold)
+        _next_generator(model.device), model.particles, ess_threshold,
+        model.mesh)
     return bool(did)
 
 
@@ -390,7 +461,7 @@ def _posterior_summary_all(model: GPModel, ds_pred,
     """Per-particle posterior marginals (mu, std) at ds_pred, model space,
     as float64 numpy [P, p]."""
     data = model._dataset()
-    p = model.particles
+    p = model._all()
     tsp = torch.as_tensor(model._ds_numeric(ds_pred), dtype=model.dtype,
                           device=model.device)
     L, alpha = model._train_factor()
@@ -436,7 +507,7 @@ def _posterior_terms(model: GPModel, ds_pred):
     """What the joint-Cholesky posteriors take: (node_type, params_t,
     noise, ts, xs, mask, ts_pred, depth_cap)."""
     data = model._dataset()
-    p = model.particles
+    p = model._all()
     tsp = torch.as_tensor(model._ds_numeric(ds_pred), dtype=model.dtype,
                           device=model.device)
     return (p.node_type, M.transform_params(p.node_type, p.params,
@@ -451,7 +522,7 @@ def predict_mvn(model: GPModel, ds, noise_pred: Optional[float] = None
     component with its full covariance per particle (api.jl:482-545)."""
     *terms, depth_cap = _posterior_terms(model, ds)
     np_pred = (None if noise_pred is None
-               else torch.full_like(model.particles.noise_z,
+               else torch.full_like(model._all().noise_z,
                                     float(noise_pred)))
     mus, covs = gp_math.posterior_mvn_masked(*terms, depth_cap,
                                              noise_pred=np_pred)
@@ -532,23 +603,25 @@ def _particles_from_kernels(kernels: List[GP.Node], noise_zs, model: GPModel,
 def gp_model_from_kernels(model: GPModel, kernels: List[GP.Node],
                           config: Optional[GPConfig] = None) -> GPModel:
     """GPModel(model, kernels) rebuild (api.jl:833-850): same data,
-    transforms and device, particles forced to the given kernels, weights
-    copied; `config` defaults to the model's."""
+    transforms, device and mesh, particles forced to the given kernels,
+    weights copied; `config` defaults to the model's."""
     assert len(kernels) == model.num_particles
     config = model.config if config is None else config
-    p = model.particles
+    p = model._all()
     particles = _particles_from_kernels(
         kernels, p.noise_z.cpu().numpy().astype(np.float64), model, config,
         log_weights=p.log_weights.cpu().numpy().astype(np.float64))
     return GPModel._from_state(particles, config, model.ds, model.y,
-                               model.ds_transform, model.y_transform)
+                               model.ds_transform, model.y_transform,
+                               mesh=model.mesh)
 
 
 def decompose(model: GPModel) -> List[GPModel]:
     """Unroll each particle's kernel into a GPModel of its fragments, one
     particle per fragment, equal weights, near-zero observation noise
     (api.jl:731-771). Each lives on the parent's device with its
-    transforms."""
+    transforms, unsharded: under a mesh every rank builds the same models
+    from the gathered batch, as the JAX package does."""
     kernels = model.covariance_kernels(reparameterize=False)
     cfg = model.config.replace(noise=1e-10)
     nz = M.untransform_param("noise", 1e-10, cfg)
@@ -566,7 +639,8 @@ def decompose(model: GPModel) -> List[GPModel]:
 def extract_kernel(model: GPModel, leaf_type: Type[GP.LeafNode],
                    retain: bool = True) -> GPModel:
     """Keep only leaves of `leaf_type` (or, with retain=False, the others)
-    in every particle (api.jl:797-802)."""
+    in every particle (api.jl:797-802); under a mesh, from the gathered
+    batch, each rank keeping its rows (gp_model_from_kernels)."""
     kernels = model.covariance_kernels(reparameterize=False)
     new = [GP.extract_kernel(k, leaf_type, retain=retain) for k in kernels]
     return gp_model_from_kernels(model, new)
@@ -582,7 +656,8 @@ def split_kernel_sop(model: GPModel, leaf_type: Type[GP.LeafNode]
     sums are balanced (the same covariance, fewer levels) and the two
     models take the model's config with its depth cap raised to hold them
     (max_depth, or static_max_depth where max_depth is unbounded): fit for
-    prediction, while the fitting kernels take depth caps up to 8."""
+    prediction, while the fitting kernels take depth caps up to 8. Under a
+    mesh, from the gathered batch, each rank keeping its rows."""
     kernels = model.covariance_kernels(reparameterize=False)
     splits = [GP.split_kernel_sop(k, leaf_type) for k in kernels]
     sides = [[s[i] for s in splits] for i in (0, 1)]
@@ -676,7 +751,9 @@ def predict_mvn_sum(model: GPModel, ds, leaf_type: Type[GP.LeafNode],
     one launch (on the card, components deeper than 8 levels raise). The
     joint conditioning, `gp_math.infer_gp_sum_from_blocks`, runs on the
     model's device in float64 whatever the model's dtype, with the jitters
-    of the blocks' dtype (`gp_math.sum_gp_jitters`): X(T*) = F_T + F_nT + noise makes the
+    of the blocks' dtype (`gp_math.sum_gp_jitters`). Under a mesh every
+    rank conditions the gathered batch and gets the unsharded answer.
+    X(T*) = F_T + F_nT + noise makes the
     joint singular up to its jitter, and in float32 the rounding of its
     factor broke mean(X) = mean(F_T) + mean(F_nT) by up to 4.2e-4
     normwise on config 4's fitted model (NVIDIA H100,
@@ -755,7 +832,10 @@ def predict_sum(model: GPModel, ds, leaf_type: Type[GP.LeafNode],
 def fit_greedy(model: GPModel, max_depth: Optional[int] = None,
                verbose: bool = False, check: bool = False,
                callback_fn: Optional[Callable] = None):
-    """Greedy AIC structure search (inference/greedy.fit_greedy)."""
+    """Greedy AIC structure search (inference/greedy.fit_greedy). It
+    takes one particle, so under a mesh only a one-rank mesh, whose shard
+    is the whole batch; a larger mesh cannot hold one particle per rank
+    and raises ValueError."""
     from autogp_tpu_torch.inference import greedy
     return greedy.fit_greedy(model, max_depth=max_depth, verbose=verbose,
                              check=check, callback_fn=callback_fn)
@@ -767,7 +847,8 @@ def fit_greedy_mcmc(model: GPModel, n_mcmc: int, n_parallel: int = 1,
                     callback_fn: Optional[Callable] = None):
     """Hybrid greedy/MCMC chain ("Algorithm 0", Greedy.jl:59-130): n_mcmc
     AIC-monotone steps, each taking the best of `n_parallel` independent
-    subtree-replace + MAP-optimize proposals."""
+    subtree-replace + MAP-optimize proposals. One particle, as
+    fit_greedy: a mesh of more than one rank raises ValueError."""
     from autogp_tpu_torch.inference import greedy
     return greedy.fit_greedy_mcmc(model, n_mcmc, n_parallel=n_parallel,
                                   biased=biased, verbose=verbose,
@@ -806,10 +887,11 @@ def particles_from_numpy(node_type, params, noise_z, log_weights, lml,
 
 
 def to_dict(model: GPModel) -> dict:
-    """Serializable dict (Base.Dict(model), api.jl:1061-1081)."""
+    """Serializable dict (Base.Dict(model), api.jl:1061-1081); under a
+    mesh, of the whole batch on every rank."""
     kernels = model.covariance_kernels(reparameterize=False)
     noises = model.observation_noise_variances(reparameterize=False)
-    p = model.particles
+    p = model._all()
     return {
         "pf_state": {
             "log_weights": p.log_weights.cpu().numpy().astype(
@@ -827,17 +909,18 @@ def to_dict(model: GPModel) -> dict:
     }
 
 
-def from_dict(d: dict, *, device="cuda",
-              dtype: Optional[torch.dtype] = None) -> GPModel:
+def from_dict(d: dict, *, device=None, dtype: Optional[torch.dtype] = None,
+              mesh=None) -> GPModel:
     """Rebuild a GPModel on `device` (the card unless the caller asks for
     the CPU) from a `to_dict` dict -- this package's or autogp_tpu's
     (GPModel(::Dict), api.jl:1084-1106). The LMLs are recomputed on the
-    device from the decoded particles."""
+    device from the decoded particles. `mesh` as in GPModel: each rank
+    keeps its rows."""
     config = GPConfig.from_dict(d["config"])
     ds = _ds_from_jsonable(d["ds"])
     y = np.asarray(d["y"], dtype=np.float64)
     m = GPModel(ds, y, n_particles=len(d["kernels"]), config=config,
-                device=device, dtype=dtype, _defer_init=True)
+                device=device, dtype=dtype, mesh=mesh, _defer_init=True)
     m.ds_transform = TR.LinearTransform.from_dict(d["ds_transform"])
     m.y_transform = TR.LinearTransform.from_dict(d["y_transform"])
     kernels = [_kernel_from_dict(k) for k in d["kernels"]]
@@ -856,8 +939,10 @@ def from_dict(d: dict, *, device="cuda",
         nts, pzs, noise_zs, lw, np.zeros(P), np.float64(
             d["pf_state"]["log_ml_est"]), np.arange(P),
         device=m.device, dtype=m.dtype)
-    m.particles = parts.replace(
-        lml=smc.lml_all(parts, m._dataset(), config, m.tables))
+    parts = parts.replace(lml=smc.lml_all(parts, m._dataset(), config,
+                                          m.tables))
+    m.particles = (parts if m.mesh is None
+                   else pmesh.shard_particles(parts, m.mesh))
     return m
 
 

@@ -213,13 +213,32 @@ def mvn_logpdf_masked(K, x, mask):
     return mvn_logpdf_from_factor(d, alpha, mask)
 
 
+# torch's CUDA reduction gives each row of a [P, n] sum more threads when
+# fewer than 16 rows are reduced (16 rows of 32 threads a block from 16 rows
+# up), so below 16 rows a row is summed in another order. HMC's compacted
+# sweeps and a particle mesh's shards run such batches.
+ROW_SUM_ROWS = 16
+
+
+def row_sum(x, dim=-1):
+    """torch.sum(x, dim) over the trailing dims of x [P, ...], each
+    particle's sum the same bits in a batch of any size: on the card a
+    batch under ROW_SUM_ROWS rows is padded with zero rows first. The
+    CPU's order does not depend on P."""
+    P = x.shape[0]
+    if x.is_cuda and P < ROW_SUM_ROWS:
+        pad = x.new_zeros((ROW_SUM_ROWS - P,) + tuple(x.shape[1:]))
+        return torch.sum(torch.cat([x, pad]), dim=dim)[:P]
+    return torch.sum(x, dim=dim)
+
+
 def mvn_logpdf_from_factor(d, alpha, mask):
     """[P] masked MVN log densities from diag(L) [P, N] and alpha = L^-1 x
     [P, N]; every LML route (value, gradient, noise gradient) ends here,
     so their values agree bit for bit on the same factor."""
     n = torch.sum(mask)
-    logdet = 2.0 * torch.sum(torch.log(d) * mask, dim=-1)
-    return -0.5 * (n * LOG2PI + logdet + torch.sum(alpha * alpha, dim=-1))
+    logdet = 2.0 * row_sum(torch.log(d) * mask)
+    return -0.5 * (n * LOG2PI + logdet + row_sum(alpha * alpha))
 
 
 def use_blocked_inv(N: int) -> bool:

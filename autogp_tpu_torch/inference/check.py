@@ -16,6 +16,8 @@ the recorded choices, and the original trace must come back exactly.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from autogp_tpu_torch import config as C
@@ -31,15 +33,18 @@ def _states_equal(nt_a, pz_a, nt_b, pz_b):
 
 def subtree_replace_roundtrip(gen, node_type, params_z, tables,
                               changepoints: bool = True,
-                              biased: bool = False):
+                              biased: bool = False,
+                              shard: Optional[M.Shard] = None):
     """[P] bool: subtree-replace then reverse from recorded choices."""
     D = tables.depth_cap
     sizes = T.subtree_sizes(node_type).to(params_z.dtype)
-    idx, path = moves.sample_pick_node(gen, node_type, sizes, biased, D)
+    idx, path = moves.sample_pick_node(gen, node_type, sizes, biased, D,
+                                       shard=shard)
     gate = moves.cp_gate_at(node_type, idx, changepoints)
     new_type, new_params = M.sample_subtree(gen, node_type, params_z, tables,
                                             root_idx=idx,
-                                            root_cp_allowed=gate)
+                                            root_cp_allowed=gate,
+                                            shard=shard)
     member = M.subtree_member(idx, tables)
     nt_rt = torch.where(member, node_type, new_type)
     pz_rt = torch.where(member[..., None], params_z, new_params)
@@ -50,13 +55,15 @@ def subtree_replace_roundtrip(gen, node_type, params_z, tables,
     return ok_state & (idx_bwd == idx) & torch.isfinite(lq_bwd)
 
 
-def detach_roundtrip(gen, node_type, params_z, tables, biased: bool = False):
+def detach_roundtrip(gen, node_type, params_z, tables, biased: bool = False,
+                     shard: Optional[M.Shard] = None):
     """[P] bool: detach(a, b) then the reverse attach."""
     D = tables.depth_cap
     sizes = T.subtree_sizes(node_type).to(params_z.dtype)
-    idx_a, _ = moves.sample_pick_node(gen, node_type, sizes, biased, D)
+    idx_a, _ = moves.sample_pick_node(gen, node_type, sizes, biased, D,
+                                      shard=shard)
     idx_b, _ = moves.sample_pick_node(gen, node_type, sizes, biased, D,
-                                      start_idx=idx_a)
+                                      start_idx=idx_a, shard=shard)
     nt_det, pz_det = moves_da.move_subtree(node_type, params_z, idx_b, idx_a,
                                            tables)
     nt_mv, pz_mv = moves_da.move_subtree(nt_det, pz_det, idx_a, idx_b,
@@ -69,32 +76,35 @@ def detach_roundtrip(gen, node_type, params_z, tables, biased: bool = False):
 
 
 def attach_roundtrip(gen, node_type, params_z, tables,
-                     changepoints: bool = True, biased: bool = False):
+                     changepoints: bool = True, biased: bool = False,
+                     shard: Optional[M.Shard] = None):
     """[P] bool: attach(a, hole) then the reverse detach(a, b=hole)."""
     D = tables.depth_cap
     sizes = T.subtree_sizes(node_type).to(params_z.dtype)
-    idx_a, _ = moves.sample_pick_node(gen, node_type, sizes, biased, D)
+    idx_a, _ = moves.sample_pick_node(gen, node_type, sizes, biased, D,
+                                      shard=shard)
     h = moves_da.subtree_height(node_type, idx_a, tables)
     hole = moves_da.sample_random_path(gen, idx_a, D - (h - 1), tables, D,
-                                       params_z.dtype)
+                                       params_z.dtype, shard=shard)
     force_cp = moves.gather_at(node_type, idx_a) == C.CHANGEPOINT
     nt_mv, pz_mv = moves_da.move_subtree(node_type, params_z, idx_a, hole,
                                          tables)
     nt_att, pz_att = moves_da.sample_aux(gen, nt_mv, pz_mv, idx_a, hole,
-                                         force_cp, tables)
+                                         force_cp, tables, shard)
     nt_rt, pz_rt = moves_da.move_subtree(nt_att, pz_att, hole, idx_a, tables)
     return _states_equal(nt_rt, pz_rt, node_type, params_z)
 
 
 def roundtrip_all(gen, node_type, params_z, tables,
-                  changepoints: bool = True, biased: bool = False):
+                  changepoints: bool = True, biased: bool = False,
+                  shard: Optional[M.Shard] = None):
     """[P, 3] bool: (subtree_replace, detach, attach) round trips."""
     return torch.stack([
         subtree_replace_roundtrip(gen, node_type, params_z, tables,
-                                  changepoints, biased),
-        detach_roundtrip(gen, node_type, params_z, tables, biased),
+                                  changepoints, biased, shard),
+        detach_roundtrip(gen, node_type, params_z, tables, biased, shard),
         attach_roundtrip(gen, node_type, params_z, tables, changepoints,
-                         biased)], dim=1)
+                         biased, shard)], dim=1)
 
 
 def trace_structurally_valid(node_type, changepoints: bool = True):

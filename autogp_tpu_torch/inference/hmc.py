@@ -16,7 +16,10 @@ order of hmc.py:69-93) and a thin sampler around it. The samplers draw for
 the whole batch (`n_lanes`) and keep the rows of the particles that run
 (`lanes`), so a particle's trajectory does not depend on which others run
 beside it: `rejuvenate_parameters` gathers the live particles before each
-sweep and scatters them back, with no chunk width to choose.
+sweep and scatters them back, with no chunk width to choose. Under a
+particle mesh (parallel/mesh.py) the batch is the global P and the rows
+sit at the rank's offset, and the sweeps end when no rank has a live
+particle.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ class HMCConfig(NamedTuple):
 
 
 def _lp_params(params_z, pmask):
-    return torch.sum(M.normal_logpdf(params_z) * pmask, dim=(-2, -1))
+    return gp_math.row_sum(M.normal_logpdf(params_z) * pmask, dim=(-2, -1))
 
 
 def _accept(u0, u1, p_sq, mom_sq, u):
@@ -80,8 +83,8 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
         p = p - 0.5 * e * g
         if i == 0:
             u0 = u_q
-    accept = _accept(u0, u_q, torch.sum(p * p, dim=(-2, -1)),
-                     torch.sum(mom0 * mom0, dim=(-2, -1)), u)
+    accept = _accept(u0, u_q, gp_math.row_sum(p * p, dim=(-2, -1)),
+                     gp_math.row_sum(mom0 * mom0, dim=(-2, -1)), u)
     return (torch.where(accept[:, None, None], q, params_z),
             torch.where(accept, lml, lml_cached), accept)
 
@@ -130,12 +133,15 @@ def hmc_params_step(gen, node_type, params_z, noise_z, lml_cached, data,
                     cfg: C.GPConfig, tables, eps: float, L: int,
                     lanes: torch.Tensor, n_lanes: int):
     """Draw momenta and uniforms for an `n_lanes`-wide batch, keep the
-    rows `lanes` (this batch's particles) and run `params_trajectory`."""
+    rows `lanes` (this batch's particles) and run `params_trajectory`.
+    With no lane, only the draws are made."""
     dt, dev = params_z.dtype, params_z.device
     pmask = T.param_mask(node_type).to(dt)
     mom0 = torch.randn((n_lanes,) + tuple(params_z.shape[1:]), generator=gen,
                        dtype=dt, device=dev)[lanes] * pmask
     u = torch.rand((n_lanes,), generator=gen, dtype=dt, device=dev)[lanes]
+    if lanes.numel() == 0:
+        return params_z, lml_cached, torch.zeros_like(lanes, dtype=torch.bool)
     return params_trajectory(node_type, params_z, noise_z, lml_cached, data,
                              cfg, tables, eps, L, mom0, u)
 
@@ -149,6 +155,8 @@ def hmc_noise_step(gen, node_type, params_z, noise_z, lml_cached, data,
     mom0 = torch.randn((n_lanes,), generator=gen, dtype=dt,
                        device=dev)[lanes]
     u = torch.rand((n_lanes,), generator=gen, dtype=dt, device=dev)[lanes]
+    if lanes.numel() == 0:
+        return noise_z, lml_cached, torch.zeros_like(lanes, dtype=torch.bool)
     return noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
                             cfg, tables, eps, L, mom0, u)
 
@@ -156,7 +164,7 @@ def hmc_noise_step(gen, node_type, params_z, noise_z, lml_cached, data,
 def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
                           data, cfg: C.GPConfig, tables, n_hmc: int,
                           hmc: HMCConfig, infer_noise: bool, enabled=None,
-                          compact: bool = True):
+                          compact: bool = True, mesh=None):
     """Up to n_hmc sweeps of (parameter HMC [+ noise HMC]) per particle,
     each stopping after `n_exit` consecutive parameter rejections
     (hmc.py:159-211). `enabled` [P] bool restricts the sweeps to some
@@ -167,9 +175,12 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
     on them only (their draws are rows of P-wide draws) and scatters the
     results back; without it, each sweep runs on all P particles and
     keeps the live ones' results (the reference's hmc_compact=False). The
-    loop ends when none is live."""
+    loop ends when none is live: with a `mesh` (parallel/mesh.py), when
+    none is live on any rank, a rank without one still making the
+    sweep's draws."""
     P = node_type.shape[0]
     dev = params_z.device
+    shard = M.Shard(0, P) if mesh is None else mesh.shard(P)
     alive = (torch.ones((P,), dtype=torch.bool, device=dev) if enabled is None
              else enabled.clone())
     n_reject = torch.zeros((P,), dtype=torch.int64, device=dev)
@@ -179,19 +190,20 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
         lml_cached.clone()
     for _ in range(n_hmc):
         idx = torch.nonzero(alive).flatten()
-        if idx.numel() == 0:
+        if not (idx.numel() > 0 if mesh is None else mesh.any(alive)):
             break
         if not compact:
             idx = torch.arange(P, device=dev)
         nt_i = node_type[idx]
         pz_i, lml_i, acc_i = hmc_params_step(
             gen, nt_i, params_z[idx], noise_z[idx], lml[idx], data, cfg,
-            tables, hmc.eps_param, hmc.L_param, idx, P)
+            tables, hmc.eps_param, hmc.L_param, idx + shard.offset,
+            shard.total)
         nz_i = noise_z[idx]
         if infer_noise:
             nz_i, lml_i, _ = hmc_noise_step(
                 gen, nt_i, pz_i, nz_i, lml_i, data, cfg, tables,
-                hmc.eps_noise, hmc.L_noise, idx, P)
+                hmc.eps_noise, hmc.L_noise, idx + shard.offset, shard.total)
         if compact:
             params_z[idx] = pz_i
             noise_z[idx] = nz_i

@@ -7,13 +7,14 @@ involutive MH ratio alpha = [score' - score] + logq_bwd - logq_fwd.
 
 Every function here acts on the whole particle batch at once ([P, ...]
 first) where the JAX package vmapped a per-particle function. Random draws
-come from an explicit torch.Generator. Tree walks are fixed-length loops
+come from an explicit torch.Generator, through `model.draw` with the
+optional `shard` of a particle mesh. Tree walks are fixed-length loops
 over the static depth cap with masked updates.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -58,7 +59,8 @@ def _walk_probs(node_type, sizes, idx, level, biased, noroot):
 
 
 def sample_pick_node(gen, node_type, sizes, biased: bool, depth_cap: int,
-                     start_idx=0, noroot: bool = False):
+                     start_idx=0, noroot: bool = False,
+                     shard: Optional[M.Shard] = None):
     """Sample a random node of each (sub)tree rooted at start_idx.
 
     node_type [P, M]; sizes [P, M] float. Returns (idx [P], PickPath).
@@ -66,8 +68,7 @@ def sample_pick_node(gen, node_type, sizes, biased: bool, depth_cap: int,
     else 1/size(subtree); p_left = .5 if biased else size(left)/(size-1)."""
     P, Mn = node_type.shape
     dev = node_type.device
-    u = torch.rand((P, 2 * depth_cap), generator=gen, dtype=sizes.dtype,
-                   device=dev)
+    u = M.draw(torch.rand, gen, (P, 2 * depth_cap), sizes.dtype, dev, shard)
     idx = M.as_index(start_idx, P, dev).clone()
     done = torch.zeros((P,), dtype=torch.bool, device=dev)
     stop_level = torch.full((P,), depth_cap - 1, dtype=torch.int64,
@@ -140,18 +141,20 @@ class MHProposal(NamedTuple):
 
 
 def subtree_replace_propose(gen, node_type, params_z, cfg: C.GPConfig,
-                            tables: M.PriorTables, biased: bool = False
-                            ) -> MHProposal:
+                            tables: M.PriorTables, biased: bool = False,
+                            shard: Optional[M.Shard] = None) -> MHProposal:
     """Pick a node, resimulate its subtree from the prior
     (inference_rejuv_tree_sr.jl:17-47)."""
     D = tables.depth_cap
     sizes = T.subtree_sizes(node_type).to(params_z.dtype)
-    idx, path = sample_pick_node(gen, node_type, sizes, biased, D)
+    idx, path = sample_pick_node(gen, node_type, sizes, biased, D,
+                                 shard=shard)
     logq_pick_fwd, _ = assess_pick_node(path, node_type, sizes, biased, D)
     gate = cp_gate_at(node_type, idx, cfg.changepoints)
     new_type, new_params = M.sample_subtree(gen, node_type, params_z, tables,
                                             root_idx=idx,
-                                            root_cp_allowed=gate)
+                                            root_cp_allowed=gate,
+                                            shard=shard)
     # Subtree prior densities appear in both the score delta and the
     # proposal densities; kept explicit to mirror Gen's accounting.
     lp_sub_new = M.tree_prior_logpdf(new_type, new_params, tables,
@@ -167,16 +170,16 @@ def subtree_replace_propose(gen, node_type, params_z, cfg: C.GPConfig,
 
 
 def score_proposal(gen, prop: MHProposal, node_type, params_z, noise_z,
-                   lml_cached, data, cfg: C.GPConfig,
-                   tables: M.PriorTables) -> MHResult:
+                   lml_cached, data, cfg: C.GPConfig, tables: M.PriorTables,
+                   shard: Optional[M.Shard] = None) -> MHResult:
     """Score proposals with ONE batched LML (the only O(N^3) part) and
     apply the involutive-MH accept/reject (moves.py:189-204)."""
     ts, xs, mask = data
     lml_new = M.lml(prop.node_type, prop.params, noise_z, ts, xs, mask,
                     cfg, tables)
     log_alpha = (lml_new - lml_cached) + prop.delta
-    u = torch.rand(lml_new.shape, generator=gen, dtype=lml_new.dtype,
-                   device=lml_new.device)
+    u = M.draw(torch.rand, gen, lml_new.shape, lml_new.dtype, lml_new.device,
+               shard)
     accept = ((torch.log(u) < log_alpha) & torch.isfinite(lml_new)
               & torch.isfinite(log_alpha))
     return MHResult(
@@ -188,17 +191,19 @@ def score_proposal(gen, prop: MHProposal, node_type, params_z, noise_z,
 
 def subtree_replace_step(gen, node_type, params_z, noise_z, lml_cached,
                          data, cfg: C.GPConfig, tables: M.PriorTables,
-                         biased: bool = False) -> MHResult:
+                         biased: bool = False,
+                         shard: Optional[M.Shard] = None) -> MHResult:
     """One subtree-replace involutive MH step for every particle."""
     prop = subtree_replace_propose(gen, node_type, params_z, cfg, tables,
-                                   biased=biased)
+                                   biased=biased, shard=shard)
     return score_proposal(gen, prop, node_type, params_z, noise_z,
-                          lml_cached, data, cfg, tables)
+                          lml_cached, data, cfg, tables, shard)
 
 
 def tree_rejuvenation_step(gen, node_type, params_z, noise_z, lml_cached,
                            data, cfg: C.GPConfig, tables: M.PriorTables,
-                           biased: bool = False) -> MHResult:
+                           biased: bool = False,
+                           shard: Optional[M.Shard] = None) -> MHResult:
     """Umbrella involutive kernel: 50/50 mixture of subtree-replace and
     detach-attach (inference_rejuv_tree.jl:23-55); detach-attach is off
     when the depth cap is 1. Both proposals are computed for the whole
@@ -209,14 +214,15 @@ def tree_rejuvenation_step(gen, node_type, params_z, noise_z, lml_cached,
     if tables.depth_cap == 1:
         return subtree_replace_step(gen, node_type, params_z, noise_z,
                                     lml_cached, data, cfg, tables,
-                                    biased=biased)
+                                    biased=biased, shard=shard)
     P = node_type.shape[0]
-    use_da = torch.rand((P,), generator=gen, dtype=params_z.dtype,
-                        device=params_z.device) < 0.5
+    use_da = M.draw(torch.rand, gen, (P,), params_z.dtype, params_z.device,
+                    shard) < 0.5
     prop_sr = subtree_replace_propose(gen, node_type, params_z, cfg, tables,
-                                      biased=biased)
+                                      biased=biased, shard=shard)
     prop_da = moves_da.detach_attach_propose(gen, node_type, params_z,
-                                             tables, biased=biased)
+                                             tables, biased=biased,
+                                             shard=shard)
     prop = MHProposal(
         node_type=torch.where(use_da[:, None], prop_da.node_type,
                               prop_sr.node_type),
@@ -224,4 +230,4 @@ def tree_rejuvenation_step(gen, node_type, params_z, noise_z, lml_cached,
                            prop_sr.params),
         delta=torch.where(use_da, prop_da.delta, prop_sr.delta))
     return score_proposal(gen, prop, node_type, params_z, noise_z,
-                          lml_cached, data, cfg, tables)
+                          lml_cached, data, cfg, tables, shard)

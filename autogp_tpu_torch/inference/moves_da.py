@@ -18,10 +18,13 @@ are [P] int64 tensors; masks are [P, M].
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from autogp_tpu_torch import config as C
+from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch import tree as T
 from autogp_tpu_torch.inference import moves
@@ -99,13 +102,13 @@ def path_between(a, b, tables, depth_cap: int) -> moves.PickPath:
 # ---------------------------------------------------------------------------
 
 def sample_random_path(gen, a, max_depth_aux, tables, depth_cap: int,
-                       dtype, noroot: bool = False):
+                       dtype, noroot: bool = False,
+                       shard: Optional[M.Shard] = None):
     """Random downward paths from a [P]: p_done = .5 per level, forced stop
     at depth == max_depth_aux [P], forced continue at the root if noroot.
     Returns the hole indices [P]."""
     P = a.shape[0]
-    u = torch.rand((P, 2 * depth_cap), generator=gen, dtype=dtype,
-                   device=a.device)
+    u = M.draw(torch.rand, gen, (P, 2 * depth_cap), dtype, a.device, shard)
     idx = a.clone()
     done = torch.zeros((P,), dtype=torch.bool, device=a.device)
     Mn = tables.ancestors.shape[0]
@@ -186,10 +189,11 @@ def aux_logpdf(node_type, params_z, a, hole, force_cp, tables):
     zero = torch.zeros((), dtype=params_z.dtype, device=dev)
     lp_params = torch.sum(torch.where(slot_mask, M.normal_logpdf(params_z),
                                       zero), dim=-1)
-    return torch.sum(torch.where(active, lp_type + lp_params, zero), dim=-1)
+    return gp_math.row_sum(torch.where(active, lp_type + lp_params, zero))
 
 
-def sample_aux(gen, node_type, params_z, a, hole, force_cp, tables):
+def sample_aux(gen, node_type, params_z, a, hole, force_cp, tables,
+               shard: Optional[M.Shard] = None):
     """Sample auxiliary structure for the slots in subtree(a) excluding
     subtree(hole); other slots are untouched. Level by level, like
     model.sample_subtree."""
@@ -199,9 +203,8 @@ def sample_aux(gen, node_type, params_z, a, hole, force_cp, tables):
     member_all = (M.subtree_member(a, tables)
                   & ~M.subtree_member(hole, tables))
     on_path_all = ancestor_mask_of(hole, tables) & member_all
-    g = M.gumbel(gen, (P, Mn, 8), dt, dev)
-    z_all = torch.randn((P, Mn, C.MAX_PARAMS), generator=gen, dtype=dt,
-                        device=dev)
+    g = M.gumbel(gen, (P, Mn, 8), dt, dev, shard)
+    z_all = M.draw(torch.randn, gen, (P, Mn, C.MAX_PARAMS), dt, dev, shard)
     new_type = node_type.clone()
     new_params = params_z.clone()
     for lvl in range(D):
@@ -240,7 +243,9 @@ def _log_pos(p):
 
 
 def detach_attach_propose(gen, node_type, params_z, tables: M.PriorTables,
-                          biased: bool = False) -> moves.MHProposal:
+                          biased: bool = False,
+                          shard: Optional[M.Shard] = None
+                          ) -> moves.MHProposal:
     """Detach-attach proposals for every particle.
 
     DETACH with p = .5 (0 for singleton trees), else ATTACH; the returned
@@ -253,17 +258,18 @@ def detach_attach_propose(gen, node_type, params_z, tables: M.PriorTables,
 
     sizes = T.subtree_sizes(node_type).to(dt)
     p_detach = torch.where(sizes[:, 0] == 1, 0.0, 0.5).to(dt)
-    do_detach = torch.rand((P,), generator=gen, dtype=dt,
-                           device=dev) < p_detach
+    do_detach = M.draw(torch.rand, gen, (P,), dt, dev, shard) < p_detach
 
     # Both branches share pick_node_a.
-    idx_a, path_a = moves.sample_pick_node(gen, node_type, sizes, biased, D)
+    idx_a, path_a = moves.sample_pick_node(gen, node_type, sizes, biased, D,
+                                           shard=shard)
     lq_pick_a_old, _ = moves.assess_pick_node(path_a, node_type, sizes,
                                               biased, D)
 
     # ----- DETACH branch ---------------------------------------------------
     idx_b_det, path_b = moves.sample_pick_node(gen, node_type, sizes, biased,
-                                               D, start_idx=idx_a)
+                                               D, start_idx=idx_a,
+                                               shard=shard)
     lq_pick_b_old, _ = moves.assess_pick_node(path_b, node_type, sizes,
                                               biased, D, start_idx=idx_a)
     nt_det, pz_det = move_subtree(node_type, params_z, idx_b_det, idx_a,
@@ -285,14 +291,15 @@ def detach_attach_propose(gen, node_type, params_z, tables: M.PriorTables,
     # ----- ATTACH branch ---------------------------------------------------
     h_att = subtree_height(node_type, idx_a, tables)
     mda_att = D - (h_att - 1)
-    hole = sample_random_path(gen, idx_a, mda_att, tables, D, dt)
+    hole = sample_random_path(gen, idx_a, mda_att, tables, D, dt,
+                              shard=shard)
     lq_path_att = logq_random_path(idx_a, hole, mda_att, tables, dt)
     force_cp_att = moves.gather_at(node_type, idx_a) == C.CHANGEPOINT
     # Move subtree(a) down to the hole; sample_aux then overwrites exactly
     # the stale slots of subtree(a) \ subtree(hole).
     nt_mv, pz_mv = move_subtree(node_type, params_z, idx_a, hole, tables)
     nt_att, pz_att = sample_aux(gen, nt_mv, pz_mv, idx_a, hole,
-                                force_cp_att, tables)
+                                force_cp_att, tables, shard)
     lq_aux_att = aux_logpdf(nt_att, pz_att, idx_a, hole, force_cp_att,
                             tables)
     sizes_att = T.subtree_sizes(nt_att).to(dt)

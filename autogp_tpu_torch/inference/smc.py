@@ -9,6 +9,12 @@ node_type [P, M] int64, params [P, M, 3], noise_z [P], log_weights [P],
 lml [P], log_ml_est [], parents [P] int64. After every MH step the
 particles whose structure move was accepted get parameter and noise HMC
 (inference/hmc.py).
+
+With a `mesh` (parallel/mesh.py) every function here runs on the rank's
+shard of the batch: draws through `model.draw` with the rank's
+`model.Shard`, the initialization's retries and the HMC sweeps ended by
+reductions over the ranks, and resampling on the gathered batch, so each
+rank ends with its rows of the unsharded result.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from autogp_tpu_torch import model as M
 from autogp_tpu_torch.inference import check as check_mod
 from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import moves
+from autogp_tpu_torch.parallel import mesh as pmesh
 
 # Finite stand-in for the cached LML of a particle whose factorization
 # failed (smc.py:45-51): its weight becomes -inf while later weight
@@ -94,25 +101,35 @@ def _data(d: Dataset):
 # ---------------------------------------------------------------------------
 
 def initialize(gen, n_particles: int, data: Dataset, cfg: C.GPConfig,
-               tables: M.PriorTables, max_retries: int = 3) -> Particles:
+               tables: M.PriorTables, max_retries: int = 3,
+               mesh=None) -> Particles:
     """Draw the initial batch from the prior. Lanes whose LML or weight is
     not finite (an ill-conditioned f32 gram) are redrawn up to
     `max_retries` times; a lane still bad gets log_weight = -inf and
-    lml = BAD_LML."""
+    lml = BAD_LML. With a `mesh`, `n_particles` is the global P and the
+    rank's shard is returned; every rank redraws while any rank has a bad
+    lane (smc.py:182-190 of the JAX package)."""
     noise_c = (None if cfg.noise is None
                else M.untransform_param("noise", cfg.noise, cfg))
     ts, xs, mask = _data(data)
+    rows = slice(None) if mesh is None else mesh.rows(n_particles)
+    n_local = n_particles if mesh is None else n_particles // mesh.size
+    shard = None if mesh is None else mesh.shard(n_local)
 
     def gen_batch():
-        nt, pz, nz, w = M.generate(gen, n_particles, ts, xs, mask, cfg,
-                                   tables, noise_z_constraint=noise_c)
+        nt, pz, nz, w = M.generate(gen, n_local, ts, xs, mask, cfg,
+                                   tables, noise_z_constraint=noise_c,
+                                   shard=shard)
         lml = M.lml(nt, pz, nz, ts, xs, mask, cfg, tables)
         return nt, pz, nz, w, lml
+
+    def any_bad():
+        return bool(bad.any()) if mesh is None else mesh.any(bad)
 
     nt, pz, nz, w, lml = gen_batch()
     bad = ~(torch.isfinite(w) & torch.isfinite(lml))
     retry = 0
-    while bool(bad.any()) and retry < max_retries:
+    while any_bad() and retry < max_retries:
         retry += 1
         nt2, pz2, nz2, w2, lml2 = gen_batch()
         nt = torch.where(bad[:, None], nt2, nt)
@@ -126,7 +143,7 @@ def initialize(gen, n_particles: int, data: Dataset, cfg: C.GPConfig,
     return Particles(
         node_type=nt, params=pz, noise_z=nz, log_weights=w, lml=lml,
         log_ml_est=torch.zeros((), dtype=ts.dtype, device=ts.device),
-        parents=torch.arange(n_particles, device=ts.device))
+        parents=torch.arange(n_particles, device=ts.device)[rows])
 
 
 def lml_all(particles: Particles, data: Dataset, cfg, tables):
@@ -169,11 +186,18 @@ def reweight(particles: Particles, data: Dataset, cfg, tables) -> Particles:
         lml=torch.where(ok, lml_new, BAD_LML))
 
 
-def maybe_resample(gen, particles: Particles, ess_threshold):
+def maybe_resample(gen, particles: Particles, ess_threshold, mesh=None):
     """Multinomial resampling when ESS < threshold: folds the weight
     normalizer into log_ml_est and zeroes the weights. `parents` persists
     from the LAST resample (Gen semantics; scripts/online.jl:67). Returns
-    (particles, resampled bool tensor)."""
+    (particles, resampled bool tensor). With a `mesh` it runs on the
+    gathered batch, the (P, P) Gumbel drawn whole on every rank, and
+    returns the rank's rows: the ESS, the decision, the fold and the
+    parents are the unsharded program's bits."""
+    if mesh is not None:
+        out, do = maybe_resample(gen, pmesh.gather_particles(particles, mesh),
+                                 ess_threshold)
+        return pmesh.shard_particles(out, mesh), do
     P = particles.n_particles
     lw = particles.log_weights
     lnw = log_normalized_weights(lw)
@@ -205,7 +229,8 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
                          cfg: C.GPConfig, tables, n_mcmc: int, n_hmc: int,
                          biased: bool = False,
                          hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
-                         check: bool = False, hmc_compact: bool = True):
+                         check: bool = False, hmc_compact: bool = True,
+                         mesh=None):
     """n_mcmc involutive-MH steps on the whole batch; after each, the
     particles that accepted their structure move get up to n_hmc sweeps
     of parameter [+ noise] HMC (smc.py:311-442). Noise HMC runs when the
@@ -216,9 +241,10 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
     post-move state (Gen.metropolis_hastings(check=true)). Returns
     (particles, n_accepted [P], n_hmc_sweeps [P], n_hmc_accepted [P]
     (parameter trajectories), check_ok [P, 4]: structural validity,
-    subtree-replace, detach, attach)."""
+    subtree-replace, detach, attach). With a `mesh`, the rank's shard."""
     infer_noise = cfg.noise is None
     P = particles.n_particles
+    shard = None if mesh is None else mesh.shard(P)
     dev = particles.noise_z.device
     d = _data(data)
     nt, pz, nz, lml = (particles.node_type, particles.params,
@@ -229,19 +255,21 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
     ok = torch.ones((P, 4), dtype=torch.bool, device=dev)
     for _ in range(n_mcmc):
         res = moves.tree_rejuvenation_step(gen, nt, pz, nz, lml, d, cfg,
-                                           tables, biased=biased)
+                                           tables, biased=biased,
+                                           shard=shard)
         nt, pz, lml = res.node_type, res.params, res.lml
         if check:
             valid = check_mod.trace_structurally_valid(
                 nt, changepoints=cfg.changepoints)
             rts = check_mod.roundtrip_all(gen, nt, pz, tables,
                                           changepoints=cfg.changepoints,
-                                          biased=biased)
+                                          biased=biased, shard=shard)
             ok = ok & torch.cat([valid[:, None], rts], dim=1)
         if n_hmc > 0:
             pz, nz, lml, acc, sw = hmc_mod.rejuvenate_parameters(
                 gen, nt, pz, nz, lml, d, cfg, tables, n_hmc, hmc_cfg,
-                infer_noise, enabled=res.accepted, compact=hmc_compact)
+                infer_noise, enabled=res.accepted, compact=hmc_compact,
+                mesh=mesh)
             n_hmc_acc = n_hmc_acc + acc
             n_sweeps = n_sweeps + sw
         n_acc = n_acc + res.accepted.to(torch.int64)
@@ -254,21 +282,23 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
               allow_resample: bool, ess_threshold: float,
               adaptive_rejuvenation: bool,
               hmc_cfg: hmc_mod.HMCConfig = hmc_mod.HMCConfig(),
-              check: bool = False, hmc_compact: bool = True):
+              check: bool = False, hmc_compact: bool = True, mesh=None):
     """reweight -> maybe_resample -> rejuvenate (inference_smc_anneal_
-    data.jl:206-253). Returns (particles, stats)."""
+    data.jl:206-253). Returns (particles, stats); with a `mesh`, the
+    rank's shard and its per-particle stats, `resampled` global."""
     dev = particles.noise_z.device
     particles = reweight(particles, data, cfg, tables)
     resampled = torch.zeros((), dtype=torch.bool, device=dev)
     if allow_resample:
-        particles, resampled = maybe_resample(gen, particles, ess_threshold)
+        particles, resampled = maybe_resample(gen, particles, ess_threshold,
+                                              mesh)
     rejuvenated = (not adaptive_rejuvenation) or bool(resampled)
     P = particles.n_particles
     if rejuvenated:
         particles, n_acc, n_sweeps, n_hmc_acc, check_ok = \
             rejuvenate_structure(gen, particles, data, cfg, tables, n_mcmc,
                                  n_hmc, biased, hmc_cfg=hmc_cfg, check=check,
-                                 hmc_compact=hmc_compact)
+                                 hmc_compact=hmc_compact, mesh=mesh)
     else:
         n_acc = torch.zeros((P,), dtype=torch.int64, device=dev)
         n_sweeps = torch.zeros_like(n_acc)
@@ -284,10 +314,11 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
 # ---------------------------------------------------------------------------
 
 def validate_particles(particles: Particles, cfg: C.GPConfig, tables=None,
-                       gen=None):
+                       gen=None, mesh=None):
     """Dynamic self-checks (the reference's check=true analog): finite
     LMLs, no NaN weights, heap invariants; with `tables`, one random
-    subtree-replace, detach and attach round trip per particle."""
+    subtree-replace, detach and attach round trip per particle (with a
+    `mesh`, on the rank's shard, drawn as the unsharded batch draws)."""
     nts = particles.node_type.cpu().numpy()
     Mn = nts.shape[1]
     assert not torch.isnan(particles.log_weights).any(), "NaN log weights"
@@ -304,9 +335,12 @@ def validate_particles(particles: Particles, cfg: C.GPConfig, tables=None,
         if gen is None:
             gen = torch.Generator(device=particles.params.device)
             gen.manual_seed(0)
+        shard = (None if mesh is None
+                 else mesh.shard(particles.n_particles))
         ok = check_mod.roundtrip_all(gen, particles.node_type,
                                      particles.params, tables,
-                                     changepoints=cfg.changepoints)
+                                     changepoints=cfg.changepoints,
+                                     shard=shard)
         assert ok[:, 0].all(), "subtree-replace round trip failed"
         assert ok[:, 1].all(), "detach round trip failed"
         assert ok[:, 2].all(), "attach round trip failed"
@@ -322,7 +356,7 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                         verbose: bool = False, check: bool = False,
                         round_stats: Optional[list] = None,
                         callback_fn: Optional[Callable] = None,
-                        hmc_compact: bool = True) -> Particles:
+                        hmc_compact: bool = True, mesh=None) -> Particles:
     """Anneal over data prefixes ts[perm][:step] for step in schedule.
     With a list `round_stats`, one dict of totals per round is appended
     to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted.
@@ -330,7 +364,12 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
     every round with the keywords particles, ts, xs (permuted), permutation,
     schedule, step, elapsed (seconds of SMC work so far, the callback's own
     time left out), rejuvenated, resampled, verbose (smc.py:671-675,
-    723-729)."""
+    723-729).
+
+    With a `mesh` (smc.py:626-697 of the JAX package) the batch lives
+    sharded for the whole run and the rank's shard is returned;
+    `round_stats` hold the sums over the ranks, the callback gets the
+    gathered particles and rank 0 prints the verbose lines."""
     n = len(ts)
     ts = np.asarray(ts, np.float64)
     xs = np.asarray(xs, np.float64)
@@ -357,8 +396,14 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             torch.cuda.synchronize(device)
         return time.time()
 
+    def gathered(p):
+        return p if mesh is None else pmesh.gather_particles(p, mesh)
+
+    def total(x):
+        return int(x.sum() if mesh is None else mesh.sum(x.sum()))
+
     def call_back(step, rejuvenated, resampled):
-        callback_fn(particles=particles, ts=ts, xs=xs,
+        callback_fn(particles=gathered(particles), ts=ts, xs=xs,
                     permutation=permutation, schedule=schedule, step=step,
                     elapsed=elapsed, rejuvenated=rejuvenated,
                     resampled=resampled, verbose=verbose)
@@ -367,7 +412,8 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
     t0 = clock()
     data0 = make_dataset(ts, xs, n=0, pad_to=bucket_size(1), dtype=dtype,
                          device=device)
-    particles = initialize(gen, n_particles, data0, cfg, tables)
+    particles = initialize(gen, n_particles, data0, cfg, tables,
+                           mesh=mesh)
     elapsed = clock() - t0
     if callback_fn is not None:
         call_back(0, False, False)
@@ -381,31 +427,35 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
             gen, particles, data, cfg, tables, int(n_mcmc[i]),
             int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
             adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check,
-            hmc_compact=hmc_compact)
+            hmc_compact=hmc_compact, mesh=mesh)
         dt_round = clock() - t0
         elapsed += dt_round
         if round_stats is not None:
             round_stats.append({
                 "step": step, "resampled": bool(stats["resampled"]),
-                **{k: int(stats[k].sum()) for k in (
+                **{k: total(stats[k]) for k in (
                     "mh_accepted", "hmc_sweeps", "hmc_accepted")}})
         if verbose:
-            w = normalized_weights(particles.log_weights).cpu().numpy()
-            ess = float(effective_sample_size(particles.log_weights))
-            acc = stats["mh_accepted"].cpu().numpy()
+            lw = gathered(particles).log_weights
+            acc, sweeps = (total(stats[k]) for k in ("mh_accepted",
+                                                     "hmc_sweeps"))
+        if verbose and (mesh is None or mesh.rank == 0):
+            w = normalized_weights(lw).cpu().numpy()
+            ess = float(effective_sample_size(lw))
             print(f"SMC round {step}/{schedule[-1]} ({dt_round:.3f} s)")
             print("Particle Weights:", np.array2string(w, precision=3))
             print(f"Particle ESS: {ess / n_particles}")
             print(f"resampled {bool(stats['resampled'])}")
-            print(f"accepted MCMC[{acc.sum()}/{n_particles * n_mcmc[i]}]")
-            print(f"HMC sweeps {int(stats['hmc_sweeps'].sum())}")
+            print(f"accepted MCMC[{acc}/{n_particles * n_mcmc[i]}]")
+            print(f"HMC sweeps {sweeps}")
         if check:
             ok = stats["check_ok"]
             assert ok[:, 0].all(), "per-move structural trace validity"
             assert ok[:, 1].all(), "per-move subtree-replace round trip"
             assert ok[:, 2].all(), "per-move detach round trip"
             assert ok[:, 3].all(), "per-move attach round trip"
-            validate_particles(particles, cfg, tables=tables, gen=gen)
+            validate_particles(particles, cfg, tables=tables, gen=gen,
+                               mesh=mesh)
         if callback_fn is not None:
             call_back(step, stats["rejuvenated"], bool(stats["resampled"]))
     return particles

@@ -240,7 +240,8 @@ def run_smc_anneal_depth(
     called after each depth. With a list `round_stats`, one dict a depth
     is appended: depth, ess (before resampling), resampled, mh_accepted,
     hmc_sweeps, hmc_accepted (totals; 0 when not rejuvenated). Returns the
-    final (particles, config)."""
+    final (particles, config). It takes no particle mesh, as in the JAX
+    package: the whole batch runs on `device`."""
     schedule = list(schedule)
     if not (schedule and all(b > a for a, b in zip(schedule, schedule[1:]))):
         raise ValueError("schedule must be a strictly increasing list of "

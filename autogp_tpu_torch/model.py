@@ -12,12 +12,16 @@ params_z [P, M, 3], noise_z [P]. The data (ts, xs, mask, each [N]) is
 shared by all particles and unbatched by signature. Random draws come from
 an explicit torch.Generator on the tensors' device; they cannot replay JAX
 threefry streams, so samplers are held to the reference by distribution.
+Every draw whose axis 0 is the particles goes through `draw`, which under
+a particle mesh (parallel/mesh.py) draws the whole batch and keeps the
+rank's rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -181,23 +185,44 @@ def tree_prior_logpdf(node_type, params_z, tables: PriorTables,
                                         zero), dim=-1)
     member = subtree_member(root, tables)
     contrib = torch.where(active & member, logp_type + logp_params, zero)
-    return torch.sum(contrib, dim=-1)
+    return gp_math.row_sum(contrib)
 
 
 # ---------------------------------------------------------------------------
 # Tree prior: sampling (autogp_tpu/model.py:195-256)
 # ---------------------------------------------------------------------------
 
-def gumbel(gen, shape, dtype, device):
+class Shard(NamedTuple):
+    """Rows [offset, offset + n) of a particle batch of `total` rows: what
+    one rank of a particle mesh holds (parallel/mesh.py)."""
+    offset: int
+    total: int
+
+
+def draw(sampler, gen, shape, dtype, device, shard: Optional[Shard] = None):
+    """`sampler(shape, generator=gen, ...)` (torch.rand or torch.randn)
+    for a batch whose axis 0 is the particles. With a shard it draws the
+    whole batch, [total, ...], and keeps the shard's shape[0] rows, so
+    every rank consumes the generator as the unsharded program does;
+    shard=None is the plain call."""
+    if shard is None:
+        return sampler(shape, generator=gen, dtype=dtype, device=device)
+    full = sampler((shard.total,) + tuple(shape[1:]), generator=gen,
+                   dtype=dtype, device=device)
+    return full[shard.offset:shard.offset + shape[0]]
+
+
+def gumbel(gen, shape, dtype, device, shard: Optional[Shard] = None):
     """Standard Gumbel noise; argmax(logits + gumbel) is a categorical draw
     that never picks a zero-probability (-inf logit) category."""
-    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    u = draw(torch.rand, gen, shape, dtype, device, shard)
     tiny = torch.finfo(dtype).tiny
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
 def sample_subtree(gen, node_type, params_z, tables: PriorTables,
-                   root_idx=0, root_cp_allowed=None):
+                   root_idx=0, root_cp_allowed=None,
+                   shard: Optional[Shard] = None):
     """Resample the subtrees rooted at root_idx ([P] or int) from the prior.
 
     Slots outside each subtree keep their values; slots inside are
@@ -210,9 +235,8 @@ def sample_subtree(gen, node_type, params_z, tables: PriorTables,
     root = as_index(root_idx, P, dev)
     if root_cp_allowed is None:
         root_cp_allowed = torch.full((P,), tables.changepoints, device=dev)
-    g = gumbel(gen, (P, M, 8), dt, dev)
-    z_all = torch.randn((P, M, C.MAX_PARAMS), generator=gen, dtype=dt,
-                        device=dev)
+    g = gumbel(gen, (P, M, 8), dt, dev, shard)
+    z_all = draw(torch.randn, gen, (P, M, C.MAX_PARAMS), dt, dev, shard)
     member_all = subtree_member(root, tables)
     new_type = torch.zeros_like(node_type)
     new_params = torch.zeros_like(params_z)
@@ -240,12 +264,14 @@ def sample_subtree(gen, node_type, params_z, tables: PriorTables,
     return out_type, out_params
 
 
-def sample_tree(gen, n: int, tables: PriorTables, dtype, device):
+def sample_tree(gen, n: int, tables: PriorTables, dtype, device,
+                shard: Optional[Shard] = None):
     """n full trees from the prior: (node_type [n, M], params_z [n, M, 3])."""
     M = tables.max_nodes
     node_type = torch.zeros((n, M), dtype=torch.int64, device=device)
     params_z = torch.zeros((n, M, C.MAX_PARAMS), dtype=dtype, device=device)
-    return sample_subtree(gen, node_type, params_z, tables, root_idx=0)
+    return sample_subtree(gen, node_type, params_z, tables, root_idx=0,
+                          shard=shard)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +337,7 @@ def _value_and_noise_grad(Km, noise, xs, mask, config: C.GPConfig):
     val = gp_math.mvn_logpdf_from_factor(diag, alpha, mask)
     n = torch.sum(mask)
     tr_active = fro2 - (N - n)
-    dlml_dnoise = -0.5 * (tr_active - torch.sum(beta * beta, dim=-1))
+    dlml_dnoise = -0.5 * (tr_active - gp_math.row_sum(beta * beta))
     p = config.prior["wildcard"]
     dnoise_dz = p["sigma"] * (noise - C.MODEL_JITTER)
     return val, dlml_dnoise * dnoise_dz
@@ -355,17 +381,18 @@ def joint_score(node_type, params_z, noise_z, ts, xs, mask,
 
 
 def generate(gen, n: int, ts, xs, mask, config: C.GPConfig,
-             tables: PriorTables, noise_z_constraint=None):
+             tables: PriorTables, noise_z_constraint=None,
+             shard: Optional[Shard] = None):
     """Gen.generate(model, (ts, config), {xs[, noise]}) for n particles.
 
     Samples trees (and noise unless constrained) from the prior; the
     weight is the log density of the constrained choices: the LML (plus
     the noise prior if noise is constrained). Returns (node_type,
-    params_z, noise_z, weight)."""
+    params_z, noise_z, weight); with a shard, the shard's n rows."""
     dt, dev = ts.dtype, ts.device
-    node_type, params_z = sample_tree(gen, n, tables, dt, dev)
+    node_type, params_z = sample_tree(gen, n, tables, dt, dev, shard)
     if noise_z_constraint is None:
-        noise_z = torch.randn((n,), generator=gen, dtype=dt, device=dev)
+        noise_z = draw(torch.randn, gen, (n,), dt, dev, shard)
         w_noise = torch.zeros((n,), dtype=dt, device=dev)
     else:
         noise_z = torch.full((n,), float(noise_z_constraint), dtype=dt,

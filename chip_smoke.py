@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SMC, online-forecasting, greedy-search,
-decomposition, depth-annealing and fixed-structure HMC paths once on one
-NVIDIA GPU.
+decomposition, depth-annealing, fixed-structure HMC and particle-mesh
+paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -154,6 +154,18 @@ back to the CPU):
      [1, 512, 512] and kernels 1 and 5 on the experiment's [1, 256, 256],
      and kernels 1 and 5 at [64, 1024, 1024] on heaps of 1, 3 and 15
      slots, against their plain versions with the gates of phases 3-6.
+ 17. mesh: config 4 (phase 8's series, schedule and widths, P = 64,
+     predict at 32 points) fitted unsharded from seed 17, then as two
+     ranks spawned from this process, each joined to a gloo group over
+     TCP on localhost with its 32 particles on cuda:0, through
+     GPModel(mesh=) from the same seed, every launch counter zeroed just
+     before the fit in each rank: kernels 1-5 must launch in each rank;
+     each rank's gathered node_type and parents equal the unsharded
+     fit's, params, noise_z, log_weights, lml, log_ml_est,
+     particle_weights() and predict's means and quantiles within 1e-6
+     relative (bitwise-equal entries counted); validate_particles with
+     round trips on the gathered batch; an odd P raises ValueError. A
+     rank that raises, dies or outlives 300 s fails the phase.
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
@@ -163,8 +175,9 @@ of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
 special functions), with that pipe named (`pipe`), and its launches in
 config 3's greedy fit (`launches_config3`) and in phase 14's
 predict_mvn_sum (`launches_predict_mvn_sum`), each read from the row's own
-counter, and in phases 15 and 16 (`launches_depth`, `launches_config2`);
-the last line is the device JSON.
+counter, and in phases 15, 16 and 17's rank 0 (`launches_depth`,
+`launches_config2`, `launches_mesh_rank0`); the last line is the device
+JSON.
 """
 
 import json
@@ -1188,6 +1201,198 @@ def config2_phase(A, np, torch):
           f"{m['lml_init']:.3f} -> {m['lml_final']:.3f}, "
           f"{m['ms_per_step']:.2f} ms per step; (c) {k_msg}")
     return launches
+
+
+
+# Phase 17: the particle mesh, config 4 as two gloo ranks on cuda:0.
+MESH_RANKS, MESH_SEED, MESH_TIMEOUT_S = 2, 17, 300
+MESH_PATH = ("cov_tape", "chol_panel", "linv_stats_wd", "kinv_beta_strips",
+             "cov_tape_bwd")
+
+
+def fit_summary(model, particles, df):
+    """What phase 17 compares, as numpy: the whole batch `particles` of a
+    config-4 fit, its particle_weights() and predict's columns."""
+    out = {k: getattr(particles, k).cpu().numpy() for k in (
+        "node_type", "parents", "params", "noise_z", "log_weights", "lml",
+        "log_ml_est")}
+    out["particle_weights"] = model.particle_weights()
+    for c in ("y_mean", "y_0.1", "y_0.5", "y_0.9"):
+        out["predict " + c] = df[c].to_numpy()
+    return out
+
+
+def mesh_rank(rank, world_size, port, out_dir, t_days, y, ds_future, sched):
+    """One rank of phase 17 (spawned): joins a gloo group over TCP on
+    localhost, puts its P / world_size particles on cuda:0 and runs phase
+    8's fit and predict through GPModel(mesh=) from MESH_SEED, every
+    launch counter zeroed just before the fit; writes the gathered
+    results, its launches and seconds to out_dir. Rank 0 runs
+    validate_particles (with round trips) on the gathered batch."""
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"mesh rank {rank}: torch.cuda.is_available() "
+                           f"is False")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world_size,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        warnings.simplefilter("ignore")
+        import autogp_tpu_torch as A
+        from autogp_tpu_torch.inference import smc
+        from autogp_tpu_torch.ops import _build
+        from autogp_tpu_torch.parallel import mesh as pmesh
+        _build.library()
+        mesh = pmesh.particle_mesh(device="cuda:0")
+        try:   # an odd P: two ranks cannot split it
+            A.GPModel(t_days, y, n_particles=5, mesh=mesh)
+            odd_raises = False
+        except ValueError:
+            odd_raises = True
+        counters = row_counters()
+        A.seed(MESH_SEED)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = A.GPModel(t_days, y, n_particles=P_MAIN, mesh=mesh)
+        A.fit_smc(model, schedule=sched, n_mcmc=10, n_hmc=10)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        df = A.predict(model, ds_future, quantiles=[.1, .5, .9])
+        everything = pmesh.gather_particles(model.particles, mesh)
+        res = fit_summary(model, everything, df)
+        if rank == 0:
+            smc.validate_particles(everything, model.config,
+                                   tables=model.tables)
+        res.update(
+            launches=launches, fit_s=fit_s, odd_raises=odd_raises,
+            shard=model.particles.n_particles,
+            device=str(model.particles.params.device),
+            round_stats=model.round_stats)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_ranks(args):
+    """Spawn MESH_RANKS ranks of mesh_rank(rank, MESH_RANKS, port, out_dir,
+    *args) and return their results; a rank that raises, dies or outlives
+    MESH_TIMEOUT_S fails the phase, and no rank outlives this call."""
+    import pickle
+    import socket
+    import tempfile
+    import torch.multiprocessing as tmp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = tmp.start_processes(
+            mesh_rank, args=(MESH_RANKS, port, out_dir, *args),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=2.0):
+                if time.monotonic() > deadline:
+                    fail(f"mesh: the ranks did not finish in "
+                         f"{MESH_TIMEOUT_S} s")
+        except (tmp.ProcessRaisedException, tmp.ProcessExitedException) as e:
+            fail(f"mesh: a rank failed: {e}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        out = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def mesh_phase(A, np, torch, t_days, y, ds_future, sched):
+    """Phase 17: config 4 (phase 8's series, schedule, n_mcmc=10,
+    n_hmc=10, predict at 32 points) fitted unsharded here from MESH_SEED,
+    then as MESH_RANKS gloo ranks sharing cuda:0 through GPModel(mesh=).
+    Gates: kernels 1-5 launch in each rank; each rank's gathered
+    node_type and parents equal the unsharded fit's; params, noise_z,
+    log_weights, lml, log_ml_est, particle_weights() and predict's means
+    and quantiles within 1e-6 relative of it (bitwise-equal entries
+    counted); each rank holds P / MESH_RANKS particles on cuda:0; an odd P
+    raises ValueError. Returns rank 0's launches by kernels-line row."""
+    counters = row_counters()
+    t0 = time.perf_counter()
+    A.seed(MESH_SEED)
+    zero_counts(counters)
+    ref_model = A.GPModel(t_days, y, n_particles=P_MAIN)
+    A.fit_smc(ref_model, schedule=sched, n_mcmc=10, n_hmc=10)
+    torch.cuda.synchronize()
+    ref_launches = read_counts(counters)
+    df = A.predict(ref_model, ds_future, quantiles=[.1, .5, .9])
+    ref = fit_summary(ref_model, ref_model.particles, df)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    del ref_model, df
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks((t_days, y, ds_future, sched))
+    ranks_s = time.perf_counter() - t0
+
+    int_keys = ("node_type", "parents")
+    msgs = []
+    for r, res in enumerate(ranks):
+        missing = [k for k in MESH_PATH if res["launches"][k] <= 0]
+        if missing:
+            fail(f"mesh: rank {r} never launched {missing}: "
+                 f"{res['launches']}")
+        if not (res["device"] == "cuda:0" and res["shard"] == P_MAIN //
+                MESH_RANKS and res["odd_raises"]):
+            fail(f"mesh: rank {r} holds {res['shard']} particles on "
+                 f"{res['device']}; an odd P raised: {res['odd_raises']}")
+        for k in int_keys:
+            if not np.array_equal(res[k], ref[k]):
+                fail(f"mesh: rank {r}'s {k} differ from the unsharded "
+                     f"fit's in {int((res[k] != ref[k]).sum())} entries")
+        n_bitwise, n_all, worst = 0, 0, 0.0
+        for k, want in ref.items():
+            if k in int_keys:
+                continue
+            got = np.asarray(res[k])
+            want = np.asarray(want)
+            width = {4: np.int32, 8: np.int64}[want.dtype.itemsize]
+            bitwise = got.view(width) == want.view(width)
+            diff = ~(bitwise | (got == want))
+            rel = (np.abs(got[diff] - want[diff])
+                   / np.maximum(np.abs(want[diff]), 1e-300))
+            if not (rel <= 1e-6).all():
+                fail(f"mesh: rank {r}'s {k} differ from the unsharded "
+                     f"fit's by up to {float(np.nanmax(rel)):.3e} relative "
+                     f"in {int(diff.sum())} entries")
+            n_bitwise += int(bitwise.sum())
+            n_all += want.size
+            worst = max([worst, *rel.tolist()])
+        msgs.append(f"rank {r}: fit {res['fit_s']:.1f} s, launches "
+                    f"{ {k: res['launches'][k] for k in MESH_PATH} }, "
+                    f"{n_bitwise}/{n_all} float entries bitwise equal, max "
+                    f"rel {worst:.3e}")
+    phase("mesh", f"config 4 (N={N_MAIN}, P={P_MAIN}, n_mcmc=10, n_hmc=10, "
+          f"predict(32, 3 quantiles)) unsharded {ref_s:.1f} s (launches "
+          f"{ {k: ref_launches[k] for k in MESH_PATH} }), then as "
+          f"{MESH_RANKS} gloo ranks on cuda:0 through GPModel(mesh=) "
+          f"({ranks_s:.1f} s with spawn, import and load): " + "; ".join(
+              msgs) + f"; node_type and parents equal the unsharded fit's "
+          f"on every rank; floats within 1e-6 relative; rounds (step, "
+          f"resampled, MH accepted, HMC sweeps) " + ", ".join(
+              f"({q['step']}, {q['resampled']}, {q['mh_accepted']}, "
+              f"{q['hmc_sweeps']})" for q in ranks[0]["round_stats"])
+          + f"; validate_particles ok on the gathered batch; P=5 raises "
+          f"ValueError")
+    return ranks[0]["launches"]
 
 
 def main():
@@ -2404,6 +2609,9 @@ def main():
     # ---- 16. config2: HMC on a fixed structure ------------------------
     launches_c2 = config2_phase(A, np, torch)
 
+    # ---- 17. mesh: config 4 as two ranks through GPModel(mesh=) --------
+    launches_mesh = mesh_phase(A, np, torch, t_days, y, ds_future, sched)
+
     # Each kernel's launches are those of the path that is its own: the
     # config-4 fit (phase 8) for the first five, the online run (phase 12)
     # for the unfused backward, the dense_grad drive of cov_matrix_diff(
@@ -2426,7 +2634,8 @@ def main():
                 "launches_config3": launches_c3[name],
                 "launches_predict_mvn_sum": launches_decomp[name],
                 "launches_depth": launches_depth[name],
-                "launches_config2": launches_c2[name]}
+                "launches_config2": launches_c2[name],
+                "launches_mesh_rank0": launches_mesh[name]}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",

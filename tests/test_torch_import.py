@@ -71,6 +71,23 @@ def test_import_leaves_the_jax_package_out():
     assert proc.stdout.startswith("ok")
 
 
+def test_mesh_import_leaves_the_jax_package_out():
+    """`import autogp_tpu_torch.parallel.mesh` (the particle mesh over
+    torch.distributed) loads neither jax nor any autogp_tpu module."""
+    code = ("import sys, autogp_tpu_torch.parallel.mesh as m\n"
+            "assert m.particle_mesh and m.shard_particles\n"
+            "assert m.replicate_dataset and m.gather_particles\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n in ('jax', 'autogp_tpu')\n"
+            "             or n.startswith(('jax.', 'autogp_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 TABLES = ["NUM_TYPES", "MAX_PARAMS", "PARAM_ARITY", "PARAM_KIND",
           "CHANGEPOINT_SCALE", "MODEL_JITTER", "SUM_GP_JITTER", "LEAF_CODES",
           "OP_CODES", "KIND_GAMMA", "KIND_PERIOD", "KIND_WILDCARD", "INACTIVE",
