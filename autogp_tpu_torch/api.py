@@ -576,12 +576,15 @@ def predict_proba(model: GPModel, ds, y) -> pd.DataFrame:
 # ---------------------------------------------------------------------------
 
 def _particles_from_kernels(kernels: List[GP.Node], noise_zs, model: GPModel,
-                            config: GPConfig, log_weights=None
-                            ) -> smc.Particles:
+                            config: GPConfig, log_weights=None,
+                            lml_f64: bool = False) -> smc.Particles:
     """node_to_trace equivalent: a particle batch on the model's device
     from symbolic kernels with given whitened noises, LMLs computed on the
     model's data (inference_utils.jl:257-284). A Constant(0) encodes as
-    z = -inf, which the transforms map to exactly 0."""
+    z = -inf, which the transforms map to exactly 0. With `lml_f64` the
+    LMLs of a model below float64 come from `model.lml_f64` on float64
+    encodings, data and tables on the model's device, then take the
+    model's dtype."""
     P = len(kernels)
     Mn = config.max_nodes
     nts = np.zeros((P, Mn), np.int64)
@@ -595,7 +598,18 @@ def _particles_from_kernels(kernels: List[GP.Node], noise_zs, model: GPModel,
         nts, pzs, np.asarray(noise_zs, np.float64), lw, np.zeros(P),
         np.float64(0.0), np.arange(P), device=model.device,
         dtype=model.dtype)
-    lml = smc.lml_all(parts, model._dataset(), config, tables)
+    if lml_f64 and model.dtype != torch.float64:
+        f64, dev = torch.float64, model.device
+        data = smc.make_dataset(model._ds_numeric(), model._y_numeric(),
+                                dtype=f64, device=dev)
+        lml = M.lml_f64(
+            torch.as_tensor(nts, device=dev),
+            torch.as_tensor(pzs, dtype=f64, device=dev),
+            torch.as_tensor(np.asarray(noise_zs, np.float64), device=dev),
+            data.ts, data.xs, data.mask, config,
+            M.prior_tables(config, dev, f64)).to(model.dtype)
+    else:
+        lml = smc.lml_all(parts, model._dataset(), config, tables)
     return parts.replace(lml=lml, log_weights=(
         lml.clone() if log_weights is None else parts.log_weights))
 
@@ -621,7 +635,10 @@ def decompose(model: GPModel) -> List[GPModel]:
     particle per fragment, equal weights, near-zero observation noise
     (api.jl:731-771). Each lives on the parent's device with its
     transforms, unsharded: under a mesh every rank builds the same models
-    from the gathered batch, as the JAX package does."""
+    from the gathered batch, as the JAX package does. A fragment's gram
+    at noise 1e-10 is too ill-conditioned for float32 (its rounding is far
+    larger than the noise), so a float32 model's fragment LMLs are
+    computed in float64 (`model.lml_f64`)."""
     kernels = model.covariance_kernels(reparameterize=False)
     cfg = model.config.replace(noise=1e-10)
     nz = M.untransform_param("noise", 1e-10, cfg)
@@ -630,7 +647,8 @@ def decompose(model: GPModel) -> List[GPModel]:
         frags = GP.unroll(k)
         sub = GPModel._from_state(
             _particles_from_kernels(frags, np.full(len(frags), nz), model,
-                                    cfg, log_weights=np.zeros(len(frags))),
+                                    cfg, log_weights=np.zeros(len(frags)),
+                                    lml_f64=True),
             cfg, model.ds, model.y, model.ds_transform, model.y_transform)
         out.append(sub)
     return out

@@ -58,7 +58,7 @@ extern "C" int autogp_cov_tape_bwd_unfused(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kbar, void* partial, void* out, int P,
-    int M, int N, int masked, void* stream);
+    int M, int N, int masked, int part_batch, void* stream);
 
 namespace {
 
@@ -128,16 +128,18 @@ heap_tape_kernel(const int* __restrict__ node_type,
 // post-order of the full heap; params [P, M, 3], ts and mask [N], kbar
 // [P, N, N] float32; tapes scratch [4 P M + P] int32 (the tape's slot,
 // type, lpos and rpos [P, M] each, then the lengths [P]); partial scratch
-// [P, chunks, 3M + 1] float64, chunks = min(n^2, max(1, 8448 / P)) for
-// n = ceil(N / 32) (ops/cov_vjp.py bwd_chunks, unfused); out [P, 3M + 1]
-// float32. Any N >= 1.
+// [P, chunks, 3M + 1] float64, chunks = min(n^2, max(1, 8448 /
+// part_batch)) for n = ceil(N / 32) (ops/cov_vjp.py bwd_chunks, unfused);
+// out [P, 3M + 1] float32. Any N >= 1; part_batch >= P, the batch whose
+// partition the backward uses (autogp_cov_tape_bwd_unfused).
 extern "C" int autogp_cov_slot_bwd(const void* node_type, const void* order,
                                    const void* params, const void* ts,
                                    const void* mask, const void* kbar,
                                    void* tapes, void* partial, void* out,
                                    int P, int M, int N, int masked,
-                                   void* stream) {
-  if (M < 1 || M > kMaxSlots || (M & (M + 1)) != 0 || N < 1 || P < 1)
+                                   int part_batch, void* stream) {
+  if (M < 1 || M > kMaxSlots || (M & (M + 1)) != 0 || N < 1 || P < 1 ||
+      part_batch < P)
     return (int)cudaErrorInvalidValue;
   int* tp = (int*)tapes;
   const long long pm = (long long)P * M;
@@ -149,5 +151,6 @@ extern "C" int autogp_cov_slot_bwd(const void* node_type, const void* order,
   if (err != cudaSuccess) return (int)err;
   return autogp_cov_tape_bwd_unfused(tp, tp + pm, tp + 2 * pm, tp + 3 * pm,
                                      tp + 4 * pm, params, ts, mask, kbar,
-                                     partial, out, P, M, N, masked, stream);
+                                     partial, out, P, M, N, masked,
+                                     part_batch, stream);
 }

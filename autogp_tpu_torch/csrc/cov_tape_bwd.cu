@@ -82,10 +82,12 @@
 //   columns each hold a point with mask != 0 (the block lists the active
 //   tile rows from the mask itself, with ballots: no host sync), in the
 //   unfused entry all of them. The grid is (chunks, P), chunks =
-//   min(tiles, kTargetBlocks / P), ~16 waves, so the staging, the
-//   accumulator zeroing and the final reduction are paid once per run of
-//   ~3-5 tiles. In the fused entries an element whose cotangent is
-//   structurally zero (above the diagonal, or masked) runs no sweep.
+//   min(tiles, kTargetBlocks / B), ~16 waves, B the batch whose partition
+//   to use (`part_batch`: P, or the whole batch of which P is a part), so
+//   the staging, the accumulator zeroing and the final reduction are paid
+//   once per run of ~3-5 tiles. In the fused entries an element whose
+//   cotangent is structurally zero (above the diagonal, or masked) runs no
+//   sweep.
 // - blockIdx.y is a rank, not a particle: each block finds the particle
 //   of that rank in the order of decreasing tape length, so the blocks of
 //   the longest tapes start first and the short ones fill in behind them
@@ -536,18 +538,24 @@ int bwd_budget(int blocks, int tables, int base) {
   return max(base, fit / 8 * 8);
 }
 
+// The partition (chunks, and the budget that sets a block's threads) is
+// that of a launch of `part_batch` >= P particles: a particle's sums are
+// grouped by it alone, so a batch of some of the particles (a mesh's
+// shard, HMC's live lanes) given the whole batch's count adds each
+// particle's terms in the same order, bit for bit, as the whole batch.
 template <bool FUSED, bool LINV>
 int launch(const void* tslot, const void* ttype, const void* tlpos,
            const void* trpos, const void* tlen, const void* params,
            const void* ts, const void* mask, const void* kmat,
            const void* beta, const void* g, void* partial, void* out, int P,
-           int M, int N, int masked, void* stream) {
+           int M, int N, int masked, int part_batch, void* stream) {
   const int nt = (N + kTile - 1) / kTile;
-  const int chunks = bwd_chunks(P, tile_count(FUSED, nt));
-  const int tables = bwd_table_bytes(M, nt, P, LINV);
+  const int chunks = bwd_chunks(part_batch, tile_count(FUSED, nt));
   const int budget =
-      bwd_budget(chunks * P, tables, LINV ? kBudgetLinv : kBudget);
-  const int smem = budget + tables;
+      bwd_budget(chunks * part_batch,
+                 bwd_table_bytes(M, nt, part_batch, LINV),
+                 LINV ? kBudgetLinv : kBudget);
+  const int smem = budget + bwd_table_bytes(M, nt, P, LINV);
   cudaError_t err = cudaFuncSetAttribute(
       cov_tape_bwd_kernel<FUSED, LINV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -572,18 +580,20 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
 // Tapes [P, M] int32 (slot, type, lpos, rpos) and lengths [P]; params
 // [P, M, 3], ts and mask [N], kinv [P, N, N] lower-only, beta [P, N],
 // g [P], all float32; partial scratch [P, chunks, 3M + 1] float64, chunks =
-// min(n(n + 1) / 2, max(1, 8448 / P)) for n = N / 32 (ops/cov_vjp.py
-// bwd_chunks); out [P, 3M + 1] float32. N must be a multiple of 32.
+// min(n(n + 1) / 2, max(1, 8448 / part_batch)) for n = N / 32
+// (ops/cov_vjp.py bwd_chunks); out [P, 3M + 1] float32. N must be a
+// multiple of 32; part_batch >= P is the batch whose partition to use.
 extern "C" int autogp_cov_tape_bwd(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kinv, const void* beta, const void* g,
-    void* partial, void* out, int P, int M, int N, void* stream) {
-  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1)
+    void* partial, void* out, int P, int M, int N, int part_batch,
+    void* stream) {
+  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1 || part_batch < P)
     return (int)cudaErrorInvalidValue;
   return launch<true, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                              mask, kinv, beta, g, partial, out, P, M, N, 1,
-                             stream);
+                             part_batch, stream);
 }
 
 // The arguments of autogp_cov_tape_bwd, with V = L^-1 [P, N, N] (exact
@@ -592,27 +602,28 @@ extern "C" int autogp_cov_tape_bwd_linv(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* linv, const void* beta, const void* g,
-    void* partial, void* out, int P, int M, int N, void* stream) {
-  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1)
+    void* partial, void* out, int P, int M, int N, int part_batch,
+    void* stream) {
+  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1 || part_batch < P)
     return (int)cudaErrorInvalidValue;
   return launch<true, true>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                             mask, linv, beta, g, partial, out, P, M, N, 1,
-                            stream);
+                            part_batch, stream);
 }
 
 // The same tapes, params, ts and mask; kbar [P, N, N] float32, the
 // cotangent of the assembled matrix, multiplied by mask_i mask_j when
 // `masked`; partial scratch [P, chunks, 3M + 1] float64, chunks =
-// min(n^2, max(1, 8448 / P)) for n = ceil(N / 32); out [P, 3M + 1]
-// float32. Any N >= 1.
+// min(n^2, max(1, 8448 / part_batch)) for n = ceil(N / 32); out [P, 3M + 1]
+// float32. Any N >= 1; part_batch >= P as above.
 extern "C" int autogp_cov_tape_bwd_unfused(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kbar, void* partial, void* out, int P,
-    int M, int N, int masked, void* stream) {
-  if (M < 1 || M > kMaxSlots || N < 1 || P < 1)
+    int M, int N, int masked, int part_batch, void* stream) {
+  if (M < 1 || M > kMaxSlots || N < 1 || P < 1 || part_batch < P)
     return (int)cudaErrorInvalidValue;
   return launch<false, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                               mask, kbar, nullptr, nullptr, partial, out, P,
-                              M, N, masked, stream);
+                              M, N, masked, part_batch, stream);
 }

@@ -19,7 +19,10 @@ beside it: `rejuvenate_parameters` gathers the live particles before each
 sweep and scatters them back, with no chunk width to choose. Under a
 particle mesh (parallel/mesh.py) the batch is the global P and the rows
 sit at the rank's offset, and the sweeps end when no rank has a live
-particle.
+particle. Each sweep's gradients take the partition of the batch the
+unsharded program runs (its live particles over all ranks, or all P
+without compaction: `part_batch` of model.lml), so a particle's
+trajectory is the same bits in any shard.
 """
 
 from __future__ import annotations
@@ -54,10 +57,12 @@ def _accept(u0, u1, p_sq, mom_sq, u):
 
 
 def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
-                      cfg: C.GPConfig, tables, eps: float, L: int, mom0, u):
+                      cfg: C.GPConfig, tables, eps: float, L: int, mom0, u,
+                      part_batch=None):
     """One HMC trajectory over the tree parameters (noise fixed) from
     momenta mom0 [P, M, 3] (zero off the active slots) and uniforms u [P].
     Returns (params_z, lml, accepted), the old values where rejected.
+    `part_batch`: as in model.lml.
 
     Iteration 0 runs the leapfrog body with step 0, which reduces it to
     the initial U and gradient at q0; the last iteration's U is the
@@ -68,7 +73,8 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
     def value_and_grad(q):
         with torch.enable_grad():
             q = q.detach().requires_grad_(True)
-            lml = M.lml(node_type, q, noise_z, ts, xs, mask, cfg, tables)
+            lml = M.lml(node_type, q, noise_z, ts, xs, mask, cfg, tables,
+                        part_batch=part_batch)
             u_q = -(_lp_params(q, pmask) + M.normal_logpdf(noise_z) + lml)
             (g,) = torch.autograd.grad(u_q.sum(), q)
         return u_q.detach(), lml.detach(), g * pmask
@@ -90,9 +96,11 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
 
 
 def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
-                     cfg: C.GPConfig, tables, eps: float, L: int, mom0, u):
+                     cfg: C.GPConfig, tables, eps: float, L: int, mom0, u,
+                     part_batch=None):
     """One HMC trajectory on the noise (params fixed) from momenta mom0
     [P] and uniforms u [P]. Returns (noise_z, lml, accepted).
+    `part_batch`: as in model.lml (the buckets without the closed form).
 
     For power-of-two buckets >= 64 the noise-free gram K0 is assembled
     once and every leapfrog pays the factorization and the kinv
@@ -110,7 +118,8 @@ def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
                                                            cfg)
         else:
             lml, glml = M.lml_value_and_noise_grad(
-                node_type, params_z, nz, ts, xs, mask, cfg, tables)
+                node_type, params_z, nz, ts, xs, mask, cfg, tables,
+                part_batch=part_batch)
         u_q = -(lp_params + M.normal_logpdf(nz) + lml)
         return u_q, lml, -(-nz + glml)
 
@@ -131,10 +140,10 @@ def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
 
 def hmc_params_step(gen, node_type, params_z, noise_z, lml_cached, data,
                     cfg: C.GPConfig, tables, eps: float, L: int,
-                    lanes: torch.Tensor, n_lanes: int):
+                    lanes: torch.Tensor, n_lanes: int, part_batch=None):
     """Draw momenta and uniforms for an `n_lanes`-wide batch, keep the
-    rows `lanes` (this batch's particles) and run `params_trajectory`.
-    With no lane, only the draws are made."""
+    rows `lanes` (this batch's particles) and run `params_trajectory`
+    (with `part_batch`). With no lane, only the draws are made."""
     dt, dev = params_z.dtype, params_z.device
     pmask = T.param_mask(node_type).to(dt)
     mom0 = torch.randn((n_lanes,) + tuple(params_z.shape[1:]), generator=gen,
@@ -143,12 +152,12 @@ def hmc_params_step(gen, node_type, params_z, noise_z, lml_cached, data,
     if lanes.numel() == 0:
         return params_z, lml_cached, torch.zeros_like(lanes, dtype=torch.bool)
     return params_trajectory(node_type, params_z, noise_z, lml_cached, data,
-                             cfg, tables, eps, L, mom0, u)
+                             cfg, tables, eps, L, mom0, u, part_batch)
 
 
 def hmc_noise_step(gen, node_type, params_z, noise_z, lml_cached, data,
                    cfg: C.GPConfig, tables, eps: float, L: int,
-                   lanes: torch.Tensor, n_lanes: int):
+                   lanes: torch.Tensor, n_lanes: int, part_batch=None):
     """Draw momenta and uniforms as `hmc_params_step` does and run
     `noise_trajectory`."""
     dt, dev = noise_z.dtype, noise_z.device
@@ -158,7 +167,7 @@ def hmc_noise_step(gen, node_type, params_z, noise_z, lml_cached, data,
     if lanes.numel() == 0:
         return noise_z, lml_cached, torch.zeros_like(lanes, dtype=torch.bool)
     return noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
-                            cfg, tables, eps, L, mom0, u)
+                            cfg, tables, eps, L, mom0, u, part_batch)
 
 
 def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
@@ -190,20 +199,25 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
         lml_cached.clone()
     for _ in range(n_hmc):
         idx = torch.nonzero(alive).flatten()
-        if not (idx.numel() > 0 if mesh is None else mesh.any(alive)):
+        # The unsharded sweep's batch: the live particles of every rank.
+        n_live = (idx.numel() if mesh is None
+                  else int(mesh.sum(torch.tensor(idx.numel()))))
+        if n_live == 0:
             break
         if not compact:
             idx = torch.arange(P, device=dev)
+            n_live = shard.total
         nt_i = node_type[idx]
         pz_i, lml_i, acc_i = hmc_params_step(
             gen, nt_i, params_z[idx], noise_z[idx], lml[idx], data, cfg,
             tables, hmc.eps_param, hmc.L_param, idx + shard.offset,
-            shard.total)
+            shard.total, part_batch=n_live)
         nz_i = noise_z[idx]
         if infer_noise:
             nz_i, lml_i, _ = hmc_noise_step(
                 gen, nt_i, pz_i, nz_i, lml_i, data, cfg, tables,
-                hmc.eps_noise, hmc.L_noise, idx + shard.offset, shard.total)
+                hmc.eps_noise, hmc.L_noise, idx + shard.offset, shard.total,
+                part_batch=n_live)
         if compact:
             params_z[idx] = pz_i
             noise_z[idx] = nz_i

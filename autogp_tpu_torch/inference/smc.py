@@ -285,9 +285,13 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
               check: bool = False, hmc_compact: bool = True, mesh=None):
     """reweight -> maybe_resample -> rejuvenate (inference_smc_anneal_
     data.jl:206-253). Returns (particles, stats); with a `mesh`, the
-    rank's shard and its per-particle stats, `resampled` global."""
+    rank's shard and its per-particle stats, `resampled` and `ess` (the
+    reweighted batch's, before resampling) global."""
     dev = particles.noise_z.device
     particles = reweight(particles, data, cfg, tables)
+    ess = effective_sample_size(
+        particles.log_weights if mesh is None
+        else mesh.gather(particles.log_weights))
     resampled = torch.zeros((), dtype=torch.bool, device=dev)
     if allow_resample:
         particles, resampled = maybe_resample(gen, particles, ess_threshold,
@@ -305,8 +309,9 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
         n_hmc_acc = torch.zeros_like(n_acc)
         check_ok = torch.ones((P, 4), dtype=torch.bool, device=dev)
     return particles, {"resampled": resampled, "rejuvenated": rejuvenated,
-                       "mh_accepted": n_acc, "hmc_sweeps": n_sweeps,
-                       "hmc_accepted": n_hmc_acc, "check_ok": check_ok}
+                       "ess": ess, "mh_accepted": n_acc,
+                       "hmc_sweeps": n_sweeps, "hmc_accepted": n_hmc_acc,
+                       "check_ok": check_ok}
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +364,8 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                         hmc_compact: bool = True, mesh=None) -> Particles:
     """Anneal over data prefixes ts[perm][:step] for step in schedule.
     With a list `round_stats`, one dict of totals per round is appended
-    to it: step, resampled, mh_accepted, hmc_sweeps, hmc_accepted.
+    to it: step, resampled, ess (before resampling), mh_accepted,
+    hmc_sweeps, hmc_accepted.
     `callback_fn` is called after the initialization (step 0) and after
     every round with the keywords particles, ts, xs (permuted), permutation,
     schedule, step, elapsed (seconds of SMC work so far, the callback's own
@@ -433,6 +439,7 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
         if round_stats is not None:
             round_stats.append({
                 "step": step, "resampled": bool(stats["resampled"]),
+                "ess": float(stats["ess"]),
                 **{k: total(stats[k]) for k in (
                     "mh_accepted", "hmc_sweeps", "hmc_accepted")}})
         if verbose:

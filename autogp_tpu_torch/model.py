@@ -279,7 +279,7 @@ def sample_tree(gen, n: int, tables: PriorTables, dtype, device,
 # ---------------------------------------------------------------------------
 
 def lml(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
-        tables: PriorTables):
+        tables: PriorTables, *, part_batch: Optional[int] = None):
     """[P] log marginal likelihoods of (ts, xs, mask) under each particle.
 
     Value only (model.lml's fused route, cov_pallas_vjp.py:857-865
@@ -294,20 +294,48 @@ def lml(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
     `cov_vjp.cov_matrix_diff` + `gp_math.mvn_logpdf_masked_cvjp`, whose
     backward forms the cotangent [P, N, N] densely and hands it to the
     tape backward's unfused entry. All three values are bitwise equal. A
-    failed factorization gives NaN."""
+    failed factorization gives NaN. The gradient's tape backward uses the
+    partition of `part_batch` particles (ops/cov_vjp.py; default: this
+    batch's): a batch of some particles of a larger one passes the larger
+    one's count, and each particle's gradient is then the larger batch's
+    bit for bit."""
     params_t = transform_params(node_type, params_z, tables)
     noise = transform_noise(noise_z, config)
     if torch.is_grad_enabled() and (params_t.requires_grad
                                     or noise.requires_grad):
         if gp_math.use_blocked_inv(ts.shape[0]):
             return cov_vjp.LmlTapeFused.apply(params_t, noise, node_type, ts,
-                                              xs, mask, tables.depth_cap)
+                                              xs, mask, tables.depth_cap,
+                                              part_batch)
         K = cov_vjp.cov_matrix_diff(node_type, params_t, noise, ts, mask,
-                                    tables.depth_cap)
+                                    tables.depth_cap, part_batch=part_batch)
         return gp_math.mvn_logpdf_masked_cvjp(K, xs, mask, True)
     K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
                      tables.depth_cap, gram=True, lower_only=True)
     return gp_math.mvn_logpdf_masked(K, xs, mask)
+
+
+def lml_f64(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
+            tables: PriorTables):
+    """[P] LMLs in float64 from float64 inputs (`tables` of
+    prior_tables(..., torch.float64)), for grams that float32 cannot hold:
+    decompose's fragment models, whose noise is 1e-10 plus MODEL_JITTER
+    and whose kernels are often of low rank. Kernel 1's float64 entry
+    assembles the padded-identity gram on the card (the plain version on
+    the CPU) and a float64 Cholesky factors it, as predict_mvn_sum's
+    conditioning does (torch.linalg.cholesky_ex; kernel 2 is float32
+    only). NaN where the gram is not positive definite."""
+    params_t = transform_params(node_type, params_z, tables)
+    noise = transform_noise(noise_z, config)
+    K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
+                     tables.depth_cap, gram=True, lower_only=False)
+    L, info = torch.linalg.cholesky_ex(K)
+    P, N = node_type.shape[0], ts.shape[0]
+    alpha = torch.linalg.solve_triangular(
+        L, (xs * mask).expand(P, N)[..., None], upper=False)[..., 0]
+    val = gp_math.mvn_logpdf_from_factor(
+        torch.diagonal(L, dim1=-2, dim2=-1), alpha, mask)
+    return torch.where(info == 0, val, torch.full_like(val, float("nan")))
 
 
 def assemble_K0(node_type, params_z, ts, mask, config: C.GPConfig,
@@ -353,15 +381,17 @@ def lml_value_and_noise_grad_from_K0(K0, noise_z, xs, mask,
 
 
 def lml_value_and_noise_grad(node_type, params_z, noise_z, ts, xs, mask,
-                             config: C.GPConfig, tables: PriorTables):
+                             config: C.GPConfig, tables: PriorTables, *,
+                             part_batch: Optional[int] = None):
     """([P] lml, [P] d lml / d noise_z) without reverse mode through the
     covariance when the closed form applies (gp_math.use_blocked_inv);
-    otherwise autograd of `lml` in noise_z (autogp_tpu/model.py:356-405)."""
+    otherwise autograd of `lml` in noise_z (autogp_tpu/model.py:356-405),
+    with `part_batch` as in `lml`."""
     if not gp_math.use_blocked_inv(ts.shape[0]):
         with torch.enable_grad():
             nz = noise_z.detach().requires_grad_(True)
             val = lml(node_type, params_z.detach(), nz, ts, xs, mask, config,
-                      tables)
+                      tables, part_batch=part_batch)
             (grad,) = torch.autograd.grad(val.sum(), nz)
         return val.detach(), grad
     params_t = transform_params(node_type, params_z, tables)

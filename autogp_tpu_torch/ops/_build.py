@@ -40,6 +40,9 @@ SIGNATURES = {
     # mask_row, mask_col, out, P, M, N1, N2, gram, lower_only, stream
     "autogp_cov_tape": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
+    # the same in float64 (cov_tape_f64.cu)
+    "autogp_cov_tape_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P],
     # A, batch stride, row stride, L out, Linv out, P, B, stream
     "autogp_chol_panel": [_P, _LL, _LL, _P, _P, _I, _I, _P],
     # L, wd, alpha, X scratch, beta, fro_part scratch, fro, kinv (or
@@ -48,24 +51,45 @@ SIGNATURES = {
     # L, wd, alpha, V out, beta, fro_part scratch, fro, P, N, stream
     "autogp_linv_beta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kinv, beta,
-    # g, partial scratch, out, P, M, N, stream
+    # g, partial scratch, out, P, M, N, part_batch, stream
     "autogp_cov_tape_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _P],
+                            _P, _P, _I, _I, _I, _I, _P],
     # the same, with V = L^-1 in place of K^-1
     "autogp_cov_tape_bwd_linv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _I, _I, _I, _P],
+                                 _P, _P, _P, _I, _I, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kbar, partial
-    # scratch, out, P, M, N, masked, stream
+    # scratch, out, P, M, N, masked, part_batch, stream
     "autogp_cov_tape_bwd_unfused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _P],
+                                    _P, _I, _I, _I, _I, _I, _P],
     # node_type, post-order, params, noise, ts, mask, out, P, M, N, masked,
     # stream
     "autogp_cov_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # node_type, post-order, params, ts, mask, kbar, tapes scratch, partial
-    # scratch, out, P, M, N, masked, stream
+    # scratch, out, P, M, N, masked, part_batch, stream
     "autogp_cov_slot_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _P],
+                            _I, _I, _P],
 }
+
+# The entries of kernels 5 and 7 that take the partition's batch
+# (`part_batch`) just before the stream.
+PART_BATCH_ENTRIES = ("autogp_cov_tape_bwd", "autogp_cov_tape_bwd_linv",
+                      "autogp_cov_tape_bwd_unfused", "autogp_cov_slot_bwd")
+
+
+def takes_part_batch(src: str) -> bool:
+    """Whether the kernel-5 or kernel-7 source text `src` has entries that
+    take `part_batch` (older trees, which the A/B scripts may build, do
+    not)."""
+    return "int part_batch" in src
+
+
+def entry_argtypes(name: str, part_batch: bool = True) -> list:
+    """SIGNATURES[name], without the part_batch argument for a source
+    whose entries do not take it."""
+    sig = SIGNATURES[name]
+    if part_batch or name not in PART_BATCH_ENTRIES:
+        return sig
+    return sig[:-2] + sig[-1:]
 
 _lib = None
 build_log = ""   # nvcc's output (-Xptxas -v: registers, spills)

@@ -11,8 +11,11 @@ their plain PyTorch versions built on gp_math.eval_cov.
 
 Both dispatch on the device of their inputs only: CUDA tensors launch the
 kernel (float32, or it raises), CPU tensors take the plain version.
-`launches` and `slot_launches` count the launches of kernels 1 and 6 and
-nothing else.
+`cov_tape` also takes float64 CUDA tensors, for the grams float32 cannot
+hold (decompose's fragment models): they launch kernel 1's float64 entry
+(csrc/cov_tape_f64.cu), with the same contract. `launches`,
+`f64_launches` and `slot_launches` count the launches of kernel 1, its
+float64 entry and kernel 6, and nothing else.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from autogp_tpu_torch import gp_math
 MAX_DEPTH = 8
 
 launches = 0
+f64_launches = 0
 slot_launches = 0
 
 
@@ -101,7 +105,9 @@ def cov_tape(node_type, params_t, noise, t_row, t_col, m_row, m_col,
     writes zeros above the diagonal, for the lower-reading Cholesky.
 
     On the card a heap deeper than MAX_DEPTH raises; the plain version
-    takes any depth, as the reference's evaluator does."""
+    takes any depth, as the reference's evaluator does. Float64 CUDA
+    tensors launch the float64 entry (every float input float64), float32
+    ones the float32 kernel."""
     if lower_only and not gram:
         raise ValueError("lower_only applies to a gram block only")
     if gram and t_row.shape[0] != t_col.shape[0]:
@@ -118,36 +124,41 @@ def cov_tape(node_type, params_t, noise, t_row, t_col, m_row, m_col,
 
 def _launch(node_type, params_t, noise, t_row, t_col, m_row, m_col,
             depth_cap, gram, lower_only):
-    global launches
+    global launches, f64_launches
     from autogp_tpu_torch.ops import _build
     P, M = node_type.shape
     N1, N2 = t_row.shape[0], t_col.shape[0]
     if M != (1 << depth_cap) - 1:
         raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
     tslot, ttype, _, _, tlen = build_tape(node_type, depth_cap)
-    f32 = torch.float32
+    f64 = params_t.dtype == torch.float64
+    ft = torch.float64 if f64 else torch.float32
     args = [("tape_slot", tslot, torch.int32, 2),
             ("tape_type", ttype, torch.int32, 2),
             ("tape_len", tlen, torch.int32, 1),
-            ("params", params_t, f32, 3), ("noise", noise, f32, 1),
-            ("t_row", t_row, f32, 1), ("t_col", t_col, f32, 1),
-            ("mask_row", m_row, f32, 1), ("mask_col", m_col, f32, 1)]
+            ("params", params_t, ft, 3), ("noise", noise, ft, 1),
+            ("t_row", t_row, ft, 1), ("t_col", t_col, ft, 1),
+            ("mask_row", m_row, ft, 1), ("mask_col", m_col, ft, 1)]
     for name, t, dt, nd in args:
         backend.check_kernel_input(name, t, dt, nd)
     if params_t.shape != (P, M, 3) or noise.shape != (P,):
         raise ValueError("params_t must be [P, M, 3] and noise [P]")
     if m_row.shape != (N1,) or m_col.shape != (N2,):
         raise ValueError("masks must match their time grids")
-    out = torch.empty((P, N1, N2), dtype=f32, device=params_t.device)
+    out = torch.empty((P, N1, N2), dtype=ft, device=params_t.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(params_t.device).cuda_stream
-    err = lib.autogp_cov_tape(
+    name = "autogp_cov_tape_f64" if f64 else "autogp_cov_tape"
+    err = getattr(lib, name)(
         tslot.data_ptr(), ttype.data_ptr(), tlen.data_ptr(),
         params_t.data_ptr(), noise.data_ptr(), t_row.data_ptr(),
         t_col.data_ptr(), m_row.data_ptr(), m_col.data_ptr(),
         out.data_ptr(), P, M, N1, N2, int(gram), int(lower_only), stream)
-    _build.check("autogp_cov_tape", err)
-    launches += 1
+    _build.check(name, err)
+    if f64:
+        f64_launches += 1
+    else:
+        launches += 1
     return out
 
 

@@ -47,6 +47,14 @@ to `LmlTapeFused` and the rest through `cov_matrix_diff`. `launches`,
 `linv_launches`, `unfused_launches` and `slot_launches` count the launches
 of `cov_tape_bwd`, `cov_tape_bwd_linv`, `cov_grads_tape` and `cov_grads`,
 and nothing else.
+
+Each kernel entry splits a particle's tiles into runs by the size of the
+batch (`bwd_chunks`), and its double sums follow that split. So every
+entry, and `cov_matrix_diff` and `LmlTapeFused` above them, take an
+optional `part_batch`: the batch whose split to use (default: the batch
+given). A mesh's shard or HMC's live lanes pass the whole batch's count,
+and each particle's gradient is then bit for bit what the whole batch
+gives it.
 """
 
 from __future__ import annotations
@@ -86,21 +94,35 @@ TERMS_OF_TYPE = (0, 1, 3, 2, 3, 3, 0, 0, 1, 1)
 INTAPE_LINV = False
 
 
-def bwd_chunks(P: int, N: int, fused: bool) -> int:
+def part_of(P: int, part_batch: int | None) -> int:
+    """The batch whose partition a launch of P particles uses: part_batch,
+    which may not be smaller than P, or P itself."""
+    if part_batch is None:
+        return P
+    if part_batch < P:
+        raise ValueError(f"part_batch={part_batch} is smaller than the "
+                         f"batch of {P}")
+    return int(part_batch)
+
+
+def bwd_chunks(P: int, N: int, fused: bool,
+               part_batch: int | None = None) -> int:
     """Blocks per particle of the tape backward: min(tiles, max(1,
-    BWD_TARGET_BLOCKS // P)), tiles = the lower tiles (fused entries) or
-    all tiles of the ceil(N / 32)-tile grid."""
+    BWD_TARGET_BLOCKS // B)), tiles = the lower tiles (fused entries) or
+    all tiles of the ceil(N / 32)-tile grid, B = `part_of(P, part_batch)`."""
     nt = -(-N // TILE)
     tiles = nt * (nt + 1) // 2 if fused else nt * nt
-    return min(tiles, max(1, BWD_TARGET_BLOCKS // P))
+    return min(tiles, max(1, BWD_TARGET_BLOCKS // part_of(P, part_batch)))
 
 
-def given_scratch(P: int, M: int, N: int):
+def given_scratch(P: int, M: int, N: int, part_batch: int | None = None):
     """Shapes of the scratch of the given-cotangent entries: the partial
-    sums [P, bwd_chunks(P, N, False), 3M + 1] (float64) of the unfused
-    body, which `cov_grads` runs too, and `cov_grads`' tapes [4 P M + P]
-    (int32: slot, type, lpos and rpos [P, M] each, then the lengths)."""
-    return (P, bwd_chunks(P, N, False), 3 * M + 1), (4 * P * M + P,)
+    sums [P, bwd_chunks(P, N, False, part_batch), 3M + 1] (float64) of the
+    unfused body, which `cov_grads` runs too, and `cov_grads`' tapes
+    [4 P M + P] (int32: slot, type, lpos and rpos [P, M] each, then the
+    lengths)."""
+    return ((P, bwd_chunks(P, N, False, part_batch), 3 * M + 1),
+            (4 * P * M + P,))
 
 
 def bwd_threads(length: int, n_terms: int, linv: bool,
@@ -130,9 +152,10 @@ def tape_terms(tape_type, length):
     return (per[tape_type.long()] * valid).sum(1) + 1
 
 
-def tile_runs(mask, P: int, fused: bool):
+def tile_runs(mask, P: int, fused: bool, part_batch: int | None = None):
     """The tiles each block of a particle visits, as the kernel walks them:
-    a list of bwd_chunks(P, N, fused) lists of (ti, tj). Fused: the lower
+    a list of bwd_chunks(P, N, fused, part_batch) lists of (ti, tj), the
+    same for every particle of the batch. Fused: the lower
     tiles whose 32 rows and 32 columns each hold a point with mask != 0,
     row by row; otherwise every tile, row by row. Block c takes the c-th
     run of ceil(tiles / chunks) of them."""
@@ -144,7 +167,7 @@ def tile_runs(mask, P: int, fused: bool):
         tiles = [(a, b) for i, a in enumerate(rows) for b in rows[:i + 1]]
     else:
         tiles = [(a, b) for a in range(nt) for b in range(nt)]
-    chunks = bwd_chunks(P, N, fused)
+    chunks = bwd_chunks(P, N, fused, part_batch)
     per = -(-len(tiles) // chunks)
     return [tiles[c * per:(c + 1) * per] for c in range(chunks)]
 
@@ -165,45 +188,48 @@ def cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower, beta, g,
 
 
 def cov_tape_bwd(node_type, params_t, ts, mask, kinv_lower, beta, g,
-                 depth_cap: int):
+                 depth_cap: int, *, part_batch: int | None = None):
     """(pbar [P, M, 3], nbar [P]): the gradient of sum_p g_p LML_p with
     respect to params_t [P, M, 3] and noise [P], given the lower-only
     K^-1 [P, N, N] and beta = K^-1 x [P, N] of each particle's gram.
 
     node_type [P, M]; ts, mask [N]; g [P]. CUDA tensors launch the kernel
-    (float32, or it raises), CPU tensors take `cov_tape_bwd_plain`."""
+    (float32, or it raises) with the partition of `part_batch` >= P
+    particles (default P), CPU tensors take `cov_tape_bwd_plain`."""
     global launches
     if not backend.on_cuda(params_t):
         return cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower,
                                   beta, g, depth_cap)
     out = _launch(node_type, params_t, ts, mask, kinv_lower, beta, g,
-                  depth_cap, linv=False)
+                  depth_cap, linv=False, part_batch=part_batch)
     launches += 1
     return out
 
 
 def cov_tape_bwd_linv(node_type, params_t, ts, mask, V, beta, g,
-                      depth_cap: int):
+                      depth_cap: int, *, part_batch: int | None = None):
     """`cov_tape_bwd` given V = L^-1 [P, N, N] (exact zeros above the
     diagonal, as `kinv.linv_beta` returns it) in place of the lower-only
     K^-1: the kernel forms each K^-1 tile from two column strips of V.
-    CUDA tensors launch the kernel (float32, or it raises), CPU tensors
-    take `cov_tape_bwd_plain` on `gp_math.kinv_from_linv(V)`."""
+    CUDA tensors launch the kernel (float32, or it raises; `part_batch` as
+    in `cov_tape_bwd`), CPU tensors take `cov_tape_bwd_plain` on
+    `gp_math.kinv_from_linv(V)`."""
     global linv_launches
     if not backend.on_cuda(params_t):
         return cov_tape_bwd_plain(node_type, params_t, ts, mask,
                                   gp_math.kinv_from_linv(V), beta, g,
                                   depth_cap)
     out = _launch(node_type, params_t, ts, mask, V, beta, g, depth_cap,
-                  linv=True)
+                  linv=True, part_batch=part_batch)
     linv_launches += 1
     return out
 
 
 def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
-            linv: bool):
+            linv: bool, part_batch: int | None):
     """One launch of the fused entry (kmat = K^-1 lower-only) or of the
-    in-tape L^-1 entry (kmat = V)."""
+    in-tape L^-1 entry (kmat = V), with the partition of
+    `part_of(P, part_batch)` particles."""
     from autogp_tpu_torch.ops import _build
     P, M = node_type.shape
     N = ts.shape[0]
@@ -225,7 +251,8 @@ def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
                          "on N points")
     n_acc = 3 * M + 1
     dev = params_t.device
-    partial = torch.empty((P, bwd_chunks(P, N, True), n_acc),
+    part = part_of(P, part_batch)
+    partial = torch.empty((P, bwd_chunks(P, N, True, part), n_acc),
                           dtype=torch.float64, device=dev)
     out = torch.empty((P, n_acc), dtype=f32, device=dev)
     lib = _build.library()
@@ -236,7 +263,7 @@ def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
         trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
         ts.data_ptr(), mask.data_ptr(), kmat.data_ptr(),
         beta.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        P, M, N, stream)
+        P, M, N, part, stream)
     _build.check(name, err)
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
 
@@ -256,23 +283,23 @@ def cov_grads_plain(node_type, params_t, kbar, ts, mask, depth_cap: int,
 
 
 def cov_grads_tape(node_type, params_t, kbar, ts, mask, depth_cap: int,
-                   masked: bool = True):
+                   masked: bool = True, *, part_batch: int | None = None):
     """(pbar [P, M, 3], nbar [P]): the gradient of sum_ij kbar_ij K_ij
     with respect to params_t and the noise, K the assembled gram of
     `cov.cov_tape` / `cov.cov_matrix`, by the tape backward in its unfused
     mode. kbar [P, N, N] is any cotangent (no symmetry assumed); with
     `masked` it is multiplied by mask_i mask_j. Any N. CUDA tensors launch
-    the kernel (float32, or it raises), CPU tensors take
-    `cov_grads_plain`."""
+    the kernel (float32, or it raises; `part_batch` as in `cov_tape_bwd`),
+    CPU tensors take `cov_grads_plain`."""
     if not backend.on_cuda(params_t):
         return cov_grads_plain(node_type, params_t, kbar, ts, mask,
                                depth_cap, masked)
     return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
-                         masked, tape=True)
+                         masked, tape=True, part_batch=part_batch)
 
 
 def cov_grads(node_type, params_t, kbar, ts, mask, depth_cap: int,
-              masked: bool = True):
+              masked: bool = True, *, part_batch: int | None = None):
     """The contract of `cov_grads_tape`, by the per-slot backward: the
     heaps are compacted into tapes on the device, then the unfused body
     runs on them (bitwise `cov_grads_tape`)."""
@@ -280,11 +307,11 @@ def cov_grads(node_type, params_t, kbar, ts, mask, depth_cap: int,
         return cov_grads_plain(node_type, params_t, kbar, ts, mask,
                                depth_cap, masked)
     return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
-                         masked, tape=False)
+                         masked, tape=False, part_batch=part_batch)
 
 
 def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
-                  tape: bool):
+                  tape: bool, part_batch: int | None):
     """Launch the tape backward's unfused entry or the per-slot backward
     on a given cotangent."""
     global unfused_launches, slot_launches
@@ -301,7 +328,8 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
             or mask.shape != (N,)):
         raise ValueError("cov_grads: shapes do not match [P, M] trees on N "
                          "points")
-    part_shape, tapes_shape = given_scratch(P, M, N)
+    part = part_of(P, part_batch)
+    part_shape, tapes_shape = given_scratch(P, M, N, part)
     dev = params_t.device
     partial = torch.empty(part_shape, dtype=torch.float64, device=dev)
     out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
@@ -314,7 +342,8 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
             tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
             trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
             ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), stream)
+            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), part,
+            stream)
         _build.check("autogp_cov_tape_bwd_unfused", err)
         unfused_launches += 1
     else:
@@ -324,7 +353,7 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
             nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
             ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
             tapes.data_ptr(), partial.data_ptr(), out.data_ptr(), P, M, N,
-            int(masked), stream)
+            int(masked), part, stream)
         _build.check("autogp_cov_slot_bwd", err)
         slot_launches += 1
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
@@ -332,13 +361,13 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
 
 class CovMatrixDiff(torch.autograd.Function):
     """apply(params_t, noise, node_type, ts, mask, depth_cap, masked,
-    tape): the gram [P, N, N] of `cov_matrix_diff`."""
+    tape, part_batch): the gram [P, N, N] of `cov_matrix_diff`."""
 
     @staticmethod
     def forward(ctx, params_t, noise, node_type, ts, mask, depth_cap: int,
-                masked: bool, tape: bool):
+                masked: bool, tape: bool, part_batch):
         ctx.save_for_backward(params_t, node_type, ts, mask)
-        ctx.opts = (depth_cap, masked, tape)
+        ctx.opts = (depth_cap, masked, tape, part_batch)
         if not tape:
             return cov.cov_matrix(node_type, params_t, noise, ts, mask,
                                   depth_cap, masked)
@@ -349,40 +378,45 @@ class CovMatrixDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, kbar):
         params_t, node_type, ts, mask = ctx.saved_tensors
-        depth_cap, masked, tape = ctx.opts
+        depth_cap, masked, tape, part_batch = ctx.opts
         grads = cov_grads_tape if tape else cov_grads
         pbar, nbar = grads(node_type, params_t, kbar.contiguous(), ts, mask,
-                           depth_cap, masked)
-        return pbar, nbar, None, None, None, None, None, None
+                           depth_cap, masked, part_batch=part_batch)
+        return pbar, nbar, None, None, None, None, None, None, None
 
 
 def cov_matrix_diff(node_type, params_t, noise, ts, mask, depth_cap: int,
-                    masked: bool = True, tape: bool = True):
+                    masked: bool = True, tape: bool = True, *,
+                    part_batch: int | None = None):
     """Differentiable assembly [P, N, N] = eval_cov(tree)(ts, ts) +
     noise I, padded rows and columns the identity when `masked`
     (cov_pallas_vjp.py:741-768). Forward: the tape kernel (`tape=True`) or
     the per-slot kernel; backward: `cov_grads_tape` or `cov_grads`.
     Differentiable in (params_t, noise); node_type, ts and mask are
-    constants."""
+    constants. The backward uses the partition of `part_batch` particles
+    (`cov_grads_tape`)."""
     return CovMatrixDiff.apply(params_t, noise, node_type, ts, mask,
-                               depth_cap, masked, tape)
+                               depth_cap, masked, tape, part_batch)
 
 
 class LmlTapeFused(torch.autograd.Function):
     """[P] LMLs of (ts, xs, mask) under trees node_type with transformed
     params_t [P, M, 3] and noise [P], differentiable in (params_t, noise).
 
-    apply(params_t, noise, node_type, ts, xs, mask, depth_cap)."""
+    apply(params_t, noise, node_type, ts, xs, mask, depth_cap,
+    part_batch); the backward's kernel 5 uses the partition of
+    `part_batch` particles (None: the batch's own)."""
 
     @staticmethod
     def forward(ctx, params_t, noise, node_type, ts, xs, mask,
-                depth_cap: int):
+                depth_cap: int, part_batch=None):
         P, N = node_type.shape[0], ts.shape[0]
         K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
                          depth_cap, gram=True, lower_only=True)
         d, alpha, wd, L = chol.chol_solve_strips(K, (xs * mask).expand(P, N))
         ctx.save_for_backward(params_t, alpha, wd, L, node_type, ts, mask)
         ctx.depth_cap = depth_cap
+        ctx.part_batch = part_batch
         ctx.intape = INTAPE_LINV
         return gp_math.mvn_logpdf_from_factor(d, alpha, mask)
 
@@ -396,5 +430,6 @@ class LmlTapeFused(torch.autograd.Function):
             kmat, beta, _ = kinv.kinv_beta_strips(alpha, wd, L)
             bwd = cov_tape_bwd
         pbar, nbar = bwd(node_type, params_t, ts, mask, kmat, beta,
-                         g.contiguous(), ctx.depth_cap)
-        return pbar, nbar, None, None, None, None, None
+                         g.contiguous(), ctx.depth_cap,
+                         part_batch=ctx.part_batch)
+        return pbar, nbar, None, None, None, None, None, None

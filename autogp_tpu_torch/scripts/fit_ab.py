@@ -12,12 +12,15 @@ CUDA events:
   - config 3's greedy fit (profile_fit's `config3` workload).
 
 It prints the card line, one JSON object per turn, and then each tree's
-times (the mean of its two turns) beside the first tree's.
+times (the mean of its two turns) beside the first tree's, and whether
+every turn's config-4 LMLs are bitwise the first tree's (a digest of
+their bytes).
 
 Usage:
     python3 -m autogp_tpu_torch.scripts.fit_ab TREE [TREE ...]
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -52,7 +55,9 @@ def _child(root):
         "predict": lambda: A.predict(m, ds, quantiles=[.1, .5, .9]),
         "predict_mvn": lambda: A.predict_mvn(m, ds),
         "predict_proba": lambda: A.predict_proba(m, ds, y)}
-    out = {"tree": root, "config4_fit_ms": fit4}
+    out = {"tree": root, "config4_fit_ms": fit4,
+           "config4_lml_sha256": hashlib.sha256(
+               m.particles.lml.cpu().numpy().tobytes()).hexdigest()}
     for name, fn in preds.items():
         fn()
         out[f"{name}_ms"] = events(fn)[1]
@@ -87,8 +92,11 @@ def main(argv=None):
     for root, rs in zip(roots, runs):
         mean = {k: sum(x[k] for x in rs) / len(rs) for k in keys}
         base = {k: sum(x[k] for x in runs[0]) / len(runs[0]) for k in keys}
+        same = all(x["config4_lml_sha256"] == runs[0][0]["config4_lml_sha256"]
+                   for x in rs)
         print(f"{root}: " + ", ".join(
-            f"{k} {mean[k]:.1f} ({mean[k] / base[k]:.3f}x)" for k in keys),
+            f"{k} {mean[k]:.1f} ({mean[k] / base[k]:.3f}x)" for k in keys)
+            + f"; config-4 LMLs bitwise the first tree's: {same}",
             flush=True)
 
 

@@ -60,8 +60,11 @@ def build_tree(d: Path, i: int):
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log = _build._compile(sorted(d.glob("*.cu")), so)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _build.SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
+    lib.part_batch = _build.takes_part_batch(
+        (d / "cov_tape_bwd.cu").read_text())
+    for name in _build.SIGNATURES:
+        getattr(lib, name).argtypes = _build.entry_argtypes(name,
+                                                            lib.part_batch)
         getattr(lib, name).restype = ctypes.c_int
     if not takes_tapes(d):
         # node_type, order, params, ts, mask, kbar, partial, out, P, M, N,
@@ -118,6 +121,7 @@ class Case:
         grads = torch.empty((P, 3 * M + 1), device=dev)
         tslot, ttype, tlpos, trpos, tlen = inp.tape
         ts, mask = self.ts.data_ptr(), self.mask.data_ptr()
+        part = (P,) if lib.part_batch else ()
 
         def check(name, err):
             if err:
@@ -143,7 +147,7 @@ class Case:
             scratch = [self.tapes.data_ptr()] if tapes else []
             check("cov_slot_bwd", lib.autogp_cov_slot_bwd(
                 *head, *scratch, self.partial.data_ptr(), grads.data_ptr(),
-                P, M, N, 1, stream))
+                P, M, N, 1, *part, stream))
             return grads
 
         def k5b():
@@ -151,7 +155,7 @@ class Case:
                 tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
                 trpos.data_ptr(), tlen.data_ptr(), inp.pt.data_ptr(), ts,
                 mask, self.kbar.data_ptr(), self.partial.data_ptr(),
-                grads.data_ptr(), P, M, N, 1, stream))
+                grads.data_ptr(), P, M, N, 1, *part, stream))
             return grads
 
         return {"kernel 6": k6, "kernel 1 (full gram)": k1,

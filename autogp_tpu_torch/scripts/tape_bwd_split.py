@@ -183,6 +183,8 @@ def build(units: dict, tmp: Path) -> dict:
     res = {}
     for name, (so, log) in out.items():
         lib = ctypes.CDLL(str(so))
+        # Whether its kernel-5 entries take the partition's batch.
+        lib.part_batch = _build.takes_part_batch(units[name][0])
         res[name] = (lib, ptxas_lines(log.read_text()))
     return res
 
@@ -273,8 +275,9 @@ def bwd_call(lib, inp, N, n_act, linv=False):
     inputs at this shape."""
     name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
     fn = getattr(lib, name)
-    fn.argtypes = _build.SIGNATURES[name]
+    fn.argtypes = _build.entry_argtypes(name, lib.part_batch)
     fn.restype = ctypes.c_int
+    part = (P,) if lib.part_batch else ()
     ts, mask, Ki, beta, g = inp.bwd(N, n_act)
     if linv:
         Ki, beta = inp.linv(N, n_act)
@@ -292,7 +295,7 @@ def bwd_call(lib, inp, N, n_act, linv=False):
                  trpos.data_ptr(), tlen.data_ptr(), inp.pt.data_ptr(),
                  ts.data_ptr(), mask.data_ptr(), Ki.data_ptr(),
                  beta.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                 out.data_ptr(), P, M, N, stream)
+                 out.data_ptr(), P, M, N, *part, stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
         return out
@@ -303,8 +306,10 @@ def unfused_call(lib, inp, N):
     """Kernel 5b on a fixed random cotangent, N / 32 * 3 // 4 rows of tiles
     active (the online run's 32-point bucket and the chip_smoke shape)."""
     fn = lib.autogp_cov_tape_bwd_unfused
-    fn.argtypes = _build.SIGNATURES["autogp_cov_tape_bwd_unfused"]
+    fn.argtypes = _build.entry_argtypes("autogp_cov_tape_bwd_unfused",
+                                        lib.part_batch)
     fn.restype = ctypes.c_int
+    part = (P,) if lib.part_batch else ()
     ts, mask = inp.grid(N, N * 3 // 4)
     gen = torch.Generator(device=inp.dev).manual_seed(N)
     kbar = torch.randn(P, N, N, generator=gen, device=inp.dev)
@@ -321,7 +326,8 @@ def unfused_call(lib, inp, N):
         err = fn(tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
                  trpos.data_ptr(), tlen.data_ptr(), inp.pt.data_ptr(),
                  ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), P, M, N, 1, stream)
+                 partial.data_ptr(), out.data_ptr(), P, M, N, 1, *part,
+                 stream)
         if err:
             raise RuntimeError(f"cov_tape_bwd_unfused: CUDA error {err}")
         return out

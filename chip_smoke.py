@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SMC, online-forecasting, greedy-search,
 decomposition, depth-annealing, fixed-structure HMC and particle-mesh
-paths once on one NVIDIA GPU.
+paths and its tutorial flows once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -125,7 +125,13 @@ back to the CPU):
      fit_greedy_mcmc(n_mcmc=6, n_parallel=4) from that state: AIC
      non-increasing, kernel 5 launches;
  14. decompose: decompose, extract_kernel and split_kernel_sop by
-     GP.Periodic on phase 8's model, the largest sum-of-products component
+     GP.Periodic on phase 8's model -- every fragment LML of the 8
+     heaviest particles that float64 finds finite on the CPU (the model
+     carried over by to_dict / from_dict) finite on the card and within
+     1e-3 relative (the
+     fragments' LMLs are float64: kernel 1's float64 entry, held to its
+     plain version at normwise 1e-12 on the largest fragment model's
+     inputs) --, the largest sum-of-products component
      depth by leaf type, then predict_mvn_sum and predict_sum at phase 8's
      32 points, every launch counter reset before predict_mvn_sum: kernel
      1 must launch there; its component blocks against kernel 1's plain
@@ -163,9 +169,24 @@ back to the CPU):
      each rank's gathered node_type and parents equal the unsharded
      fit's, params, noise_z, log_weights, lml, log_ml_est,
      particle_weights() and predict's means and quantiles within 1e-6
-     relative (bitwise-equal entries counted); validate_particles with
+     relative and every entry bitwise equal; validate_particles with
      round trips on the gathered batch; an odd P raises ValueError. A
-     rank that raises, dies or outlives 300 s fails the phase.
+     rank that raises, dies or outlives 300 s fails the phase. Kernels 5,
+     5c, 5b and 7 on two 32-row halves and every fifth row of a [64, 1024,
+     1024] batch, each given part_batch=64 (the whole batch's partition),
+     torch.equal to the whole batch's rows (scripts/batch_bits.py).
+ 18. tutorials: the flows of autogp_tpu_torch/scripts/tutorials on
+     cuda:0 -- overview, decomposition (its fragment LMLs held to float64
+     on the CPU as in phase 14), callbacks and greedy_mcmc at their FAST
+     settings with their own asserts; iclaims at its full reference budget
+     (443 weeks in log space, 354 to train, P = 8, linear_schedule(354,
+     .20), n_mcmc=50, n_hmc=10, shuffle, adaptive_resampling=False, then
+     predict at 469 points, predict_quantile at 0.025 / 0.5 / 0.975 and
+     predict_mvn with the log-normal correction), every launch counter
+     zeroed just before: its asserts, kernels 1-5 launch,
+     validate_particles, finite live LMLs, the top 8 LMLs and predictions
+     within 1e-3 of float64 on the CPU, the quantiles within 1e-3 of the y
+     range of a float64 CPU predict_quantile on the carried-over model.
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
@@ -175,9 +196,9 @@ of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
 special functions), with that pipe named (`pipe`), and its launches in
 config 3's greedy fit (`launches_config3`) and in phase 14's
 predict_mvn_sum (`launches_predict_mvn_sum`), each read from the row's own
-counter, and in phases 15, 16 and 17's rank 0 (`launches_depth`,
-`launches_config2`, `launches_mesh_rank0`); the last line is the device
-JSON.
+counter, and in phases 15, 16 and 17's rank 0 and phase 18's iclaims fit
+(`launches_depth`, `launches_config2`, `launches_mesh_rank0`,
+`launches_tutorials`); the last line is the device JSON.
 """
 
 import json
@@ -197,6 +218,7 @@ N_MAIN, P_MAIN = 1024, 64
 # CUDA C++ documentation, arithmetic instruction throughput table) x 132
 # SMs x 1.98 GHz.
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12      # FP64 outside the tensor cores (same data sheet)
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
@@ -229,15 +251,15 @@ def phase(name, msg):
     _t_phase = now
 
 
-def bound(flops, sfu, nbytes, tf32=0.0):
+def bound(flops, sfu, nbytes, tf32=0.0, f64=0.0):
     """(bound_ms, bound_by, pipe): the largest of the times the work needs
     on each pipe it runs on -- FP32 `flops` on the CUDA cores, TF32
     `tf32` flops on the tensor cores (3xTF32 counts its three products),
-    `sfu` special-function calls -- and the byte time. The pipes can run
-    side by side, so the slowest one is the least time and no share of it
-    reads above 100%."""
+    `sfu` special-function calls, FP64 `f64` operations -- and the byte
+    time. The pipes can run side by side, so the slowest one is the least
+    time and no share of it reads above 100%."""
     pipes = {"fp32": flops / PEAK_F32, "tf32 tensor cores": tf32 / PEAK_TF32,
-             "special functions": sfu / PEAK_SFU,
+             "special functions": sfu / PEAK_SFU, "fp64": f64 / PEAK_F64,
              "memory": nbytes / PEAK_BYTES}
     pipe = max(pipes, key=pipes.get)
     return (pipes[pipe] * 1e3, "bytes" if pipe == "memory" else
@@ -350,6 +372,7 @@ def row_counters():
     """Each kernels-line row's own launch counter, (module, attribute)."""
     from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
     return {"cov_tape": (cov, "launches"),
+            "cov_tape_f64": (cov, "f64_launches"),
             "chol_panel": (chol, "launches"),
             "linv_stats_wd": (kinv, "stats_launches"),
             "linv_beta": (kinv, "linv_beta_launches"),
@@ -647,15 +670,14 @@ def decompose_phase(A, np, torch, model, ds_pred, quantiles):
     GP = A.GP
     P = model.num_particles
     t0 = time.perf_counter()
-    subs = A.decompose(model)
+    subs, frag_msg, f64_launches = fragment_lml_check(A, np, torch, model,
+                                                      top=8)
     kernels = model.covariance_kernels(reparameterize=False)
     if len(subs) != P or any(
             s_.device.type != "cuda" or s_.num_particles != len(GP.unroll(k))
             for s_, k in zip(subs, kernels)):
         fail("decompose: wrong sub-model count, size or device")
-    n_frag = sum(s_.num_particles for s_ in subs)
-    n_frag_bad = sum(int((~torch.isfinite(s_.particles.lml)).sum())
-                     for s_ in subs)
+    f64_row = f64_kernel_row(A, np, torch, model, subs)
     ex = A.extract_kernel(model, GP.Periodic)
     sa, sb = A.split_kernel_sop(model, GP.Periodic)
     if not all(m_.device.type == "cuda" and m_.num_particles == P
@@ -747,9 +769,13 @@ def decompose_phase(A, np, torch, model, ds_pred, quantiles):
         fail(f"predict_mvn_sum: card vs float64 CPU on the top 8: mean "
              f"{mean_err:.3e}, cov {cov_err:.3e}")
     phase("decompose", f"on phase 8's config-4 model (P={P}): decompose "
-          f"({n_frag} fragments on the card, {n_frag_bad} with a non-finite"
-          f" f32 LML at noise 1e-10), extract_kernel(Periodic), "
-          f"split_kernel_sop(Periodic) {api_s:.2f} s; largest component "
+          f"({frag_msg}; kernel 1's float64 entry: {f64_launches} launches,"
+          f" at [{f64_row['shape']}] vs its plain version "
+          f"{f64_row['err']:.3e} normwise (gate 1e-12), {f64_row['ms']:.4f}"
+          f" ms, plain {f64_row['plain_ms']:.4f} ms, bound "
+          f"{f64_row['bound'][0]:.4f} ms ({f64_row['bound'][2]})), "
+          f"extract_kernel(Periodic), split_kernel_sop(Periodic) "
+          f"{api_s:.2f} s; largest component "
           f"depth by leaf type {depths}; predict_mvn_sum({len(ds_pred)}) "
           f"{ev[0].elapsed_time(ev[1]):.1f} ms, predict_sum({len(ds_pred)}, "
           f"{len(quantiles)} quantiles) {ev[2].elapsed_time(ev[3]):.1f} ms "
@@ -759,7 +785,109 @@ def decompose_phase(A, np, torch, model, ds_pred, quantiles):
           f"F_nT to {sum_err:.3e} (gate 1e-4); top 8 vs float64 CPU "
           f"({ref_s:.1f} s): mean {mean_err:.3e}, cov {cov_err:.3e} (gate "
           f"1e-3); Constant(0) pads transform to 0")
-    return launches
+    f64_row["launches"] = f64_launches
+    return launches, f64_row
+
+
+def fragment_lml_check(A, np, torch, model, top=None):
+    """decompose(model) on the card against decompose of the model carried
+    to the CPU in float64 (to_dict / from_dict), on the fragments of every
+    particle or of the `top` heaviest (the CPU's float64 evaluator takes
+    ~0.7 s a fragment model at N = 1024): every fragment LML that float64
+    finds finite must be finite on the card and within 1e-3 relative.
+    Returns (the card's fragment models, a summary, the launches of
+    kernel 1's float64 entry in decompose)."""
+    from autogp_tpu_torch.ops import cov
+    cov.f64_launches = 0
+    t0 = time.perf_counter()
+    subs = A.decompose(model)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    f64_launches = cov.f64_launches
+    keep = list(range(model.num_particles))
+    if top is not None:
+        keep = [int(i) for i in np.argsort(-model.particle_weights())[:top]]
+    t0 = time.perf_counter()
+    d = A.to_dict(model)
+    for key in ("kernels", "noise_zs", "noises"):
+        d[key] = [d[key][i] for i in keep]
+    d["pf_state"]["log_weights"] = [d["pf_state"]["log_weights"][i]
+                                    for i in keep]
+    ref = A.from_dict(d, device="cpu", dtype=torch.float64)
+    ref_subs = A.decompose(ref)
+    ref_s = time.perf_counter() - t0
+    subs_kept = [subs[i] for i in keep]
+    if [s_.num_particles for s_ in subs_kept] != [s_.num_particles
+                                                 for s_ in ref_subs]:
+        fail("decompose: the card's fragments differ from float64's")
+    got = np.concatenate([s_.particles.lml.double().cpu().numpy()
+                          for s_ in subs_kept])
+    want = np.concatenate([s_.particles.lml.numpy() for s_ in ref_subs])
+    fin = np.isfinite(want)
+    lost = fin & ~np.isfinite(got)
+    rel = np.abs(got[fin] - want[fin]) / np.abs(want[fin])
+    worst = float(np.nanmax(rel)) if fin.any() else 0.0
+    if lost.any() or not (rel <= 1e-3).all():
+        fail(f"decompose: {int(lost.sum())} fragment LMLs finite in float64 "
+             f"on the CPU are not finite on the card; the finite ones agree "
+             f"to {worst:.3e} relative (gate 1e-3)")
+    n_all = sum(s_.num_particles for s_ in subs)
+    which = ("all" if top is None
+             else f"the {len(keep)} heaviest particles'")
+    return subs, (
+        f"{n_all} fragments, {card_s:.2f} s on the card; of {which} "
+        f"{len(want)}, float64 CPU finds {int(fin.sum())} LMLs finite "
+        f"({ref_s:.1f} s), the card {int(np.isfinite(got).sum())}, all of "
+        f"those within {worst:.3e} relative (gate 1e-3)"), f64_launches
+
+
+def f64_kernel_row(A, np, torch, model, subs):
+    """Kernel 1's float64 entry on the inputs `model.lml_f64` gives it for
+    the largest fragment model of `subs` (the model's N-point bucket):
+    against its plain version on the same float64 inputs (per-particle
+    normwise error), both timed (CUDA events), its bound (the float64
+    output over the memory rate, or one FP64 operation for each formula
+    operation and each exp / log / sin over the FP64 rate)."""
+    from autogp_tpu_torch import model as M
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.ops import cov
+    f64, dev = torch.float64, model.device
+    sub = max(subs, key=lambda s_: s_.num_particles)
+    p = sub.particles
+    tab = M.prior_tables(sub.config, dev, f64)
+    data = smc.make_dataset(model._ds_numeric(), model._y_numeric(),
+                            dtype=f64, device=dev)
+    pt = M.transform_params(p.node_type, p.params.double(), tab)
+    noise = M.transform_noise(p.noise_z.double(), sub.config)
+    ts, mask = data.ts, data.mask
+    D = tab.depth_cap
+
+    def kern():
+        return cov.cov_tape(p.node_type, pt, noise, ts, ts, mask, mask, D,
+                            gram=True)
+
+    def plain():
+        return cov.cov_tape_plain(p.node_type, pt, noise, ts, ts, mask,
+                                  mask, D, True, False)
+    before = cov.f64_launches
+    K = kern()
+    torch.cuda.synchronize()
+    if cov.f64_launches != before + 1:
+        fail("cov_tape on float64 CUDA tensors did not launch its entry")
+    err = normwise_rel(K, plain())
+    if not err <= 1e-12:
+        fail(f"kernel 1's float64 entry vs its plain version: {err:.3e} "
+             f"(gate 1e-12)")
+    Pn, N = K.shape[0], K.shape[1]
+    cost = tape_cost(p.node_type, D, FWD_COST)
+    n_act = float(mask.sum())
+    ops = sum(f + s_ for f, s_ in cost) * n_act * n_act
+    return {"shape": f"{Pn}, {N}, {N}", "err": err,
+            "abs_err": float((K - plain()).abs().max()),
+            "ms": cuda_ms(torch, kern, 5),
+            "dev_ms": device_ms(torch, kern, ("cov_tape_f64_kernel",), 5),
+            "plain_ms": cuda_ms(torch, plain, 2),
+            "bound": bound(0.0, 0.0, Pn * N * N * 8, f64=ops)}
 
 
 def depth_posterior_oracle(np, torch):
@@ -1322,9 +1450,12 @@ def mesh_phase(A, np, torch, t_days, y, ds_future, sched):
     Gates: kernels 1-5 launch in each rank; each rank's gathered
     node_type and parents equal the unsharded fit's; params, noise_z,
     log_weights, lml, log_ml_est, particle_weights() and predict's means
-    and quantiles within 1e-6 relative of it (bitwise-equal entries
-    counted); each rank holds P / MESH_RANKS particles on cuda:0; an odd P
-    raises ValueError. Returns rank 0's launches by kernels-line row."""
+    and quantiles within 1e-6 relative of it and every entry bitwise
+    equal; each rank holds P / MESH_RANKS particles on cuda:0; an odd P
+    raises ValueError; kernels 5, 5c, 5b and 7 on shards of a [64, 1024,
+    1024] batch given part_batch=64 torch.equal to the whole batch's rows
+    (scripts/batch_bits.kernel5_shards). Returns rank 0's launches by
+    kernels-line row."""
     counters = row_counters()
     t0 = time.perf_counter()
     A.seed(MESH_SEED)
@@ -1343,6 +1474,15 @@ def mesh_phase(A, np, torch, t_days, y, ds_future, sched):
     ranks = run_mesh_ranks((t_days, y, ds_future, sched))
     ranks_s = time.perf_counter() - t0
 
+    # Kernel 5's entries on shards of a [64, 1024, 1024] batch, each given
+    # the whole batch's count (scripts/batch_bits.py).
+    from autogp_tpu_torch.scripts import batch_bits
+    t0 = time.perf_counter()
+    shards = batch_bits.kernel5_shards(torch.device("cuda"), N=N_MAIN)
+    shards_s = time.perf_counter() - t0
+    if any(n_bad for *_, n_bad in shards):
+        fail(f"mesh: kernel 5 given part_batch=64 differs from the whole "
+             f"batch on a shard: {shards}")
     int_keys = ("node_type", "parents")
     msgs = []
     for r, res in enumerate(ranks):
@@ -1376,6 +1516,10 @@ def mesh_phase(A, np, torch, t_days, y, ds_future, sched):
             n_bitwise += int(bitwise.sum())
             n_all += want.size
             worst = max([worst, *rel.tolist()])
+        if n_bitwise != n_all:
+            fail(f"mesh: rank {r}: {n_all - n_bitwise} of {n_all} float "
+                 f"entries are not bitwise the unsharded fit's (max rel "
+                 f"{worst:.3e})")
         msgs.append(f"rank {r}: fit {res['fit_s']:.1f} s, launches "
                     f"{ {k: res['launches'][k] for k in MESH_PATH} }, "
                     f"{n_bitwise}/{n_all} float entries bitwise equal, max "
@@ -1386,13 +1530,129 @@ def mesh_phase(A, np, torch, t_days, y, ds_future, sched):
           f"{MESH_RANKS} gloo ranks on cuda:0 through GPModel(mesh=) "
           f"({ranks_s:.1f} s with spawn, import and load): " + "; ".join(
               msgs) + f"; node_type and parents equal the unsharded fit's "
-          f"on every rank; floats within 1e-6 relative; rounds (step, "
+          f"on every rank; every float entry bitwise equal; kernels 5, 5c, "
+          f"5b and 7 on {len(shards) // 4} shards of [64, {N_MAIN}, "
+          f"{N_MAIN}] given part_batch=64: 0 particles differ from the "
+          f"whole batch's ({shards_s:.1f} s); rounds (step, "
           f"resampled, MH accepted, HMC sweeps) " + ", ".join(
               f"({q['step']}, {q['resampled']}, {q['mh_accepted']}, "
               f"{q['hmc_sweeps']})" for q in ranks[0]["round_stats"])
           + f"; validate_particles ok on the gathered batch; P=5 raises "
           f"ValueError")
     return ranks[0]["launches"]
+
+
+def tutorials_phase(A, np, torch):
+    """Phase 18: the port's tutorial flows (autogp_tpu_torch/scripts/
+    tutorials) on cuda:0. (a) overview, decomposition, callbacks and
+    greedy_mcmc at their FAST settings, each with its own asserts, the
+    decomposition's fragment LMLs against float64 on the CPU; (b) iclaims
+    at its full reference budget (443 weeks in log space, 354 to train,
+    P = 8, linear_schedule(354, .20), n_mcmc=50, n_hmc=10, shuffle,
+    adaptive_resampling=False; predict at 469 points, predict_quantile at
+    0.025 / 0.5 / 0.975 (tol 1e-6), predict_mvn and the log-normal
+    correction), every launch counter zeroed just before. Gates: the
+    flow's asserts, kernels 1-5 launch, validate_particles, finite LMLs
+    for the live particles, the 8 heaviest particles' LMLs and
+    predictions within 1e-3 of float64 on the CPU, the three quantile
+    curves within 1e-3 of the y range of a float64 CPU predict_quantile
+    on the same carried-over model. Returns iclaims' launches by
+    kernels-line row."""
+    from autogp_tpu_torch.inference import smc
+    from autogp_tpu_torch.scripts.tutorials import (
+        callbacks, decomposition, greedy_mcmc, iclaims, overview)
+    msgs = []
+    for name, flow in (("overview", overview),
+                       ("decomposition", decomposition),
+                       ("callbacks", callbacks),
+                       ("greedy_mcmc", greedy_mcmc)):
+        t0 = time.perf_counter()
+        try:
+            r = flow.run(True, device="cuda:0")
+        except AssertionError as e:
+            fail(f"tutorials: the {name} flow's assert failed on the card: "
+                 f"{e!r}")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        models = [v for v in r.values() if isinstance(v, A.GPModel)]
+        if not models or any(m_.device.type != "cuda"
+                             or m_.dtype != torch.float32 for m_ in models):
+            fail(f"tutorials: {name} did not run on the card in float32")
+        extra = ""
+        if name == "decomposition":
+            _, frag_msg, _ = fragment_lml_check(A, np, torch, r["model"])
+            extra = f" (decompose: {frag_msg})"
+        elif name == "greedy_mcmc":
+            aics = [a for _, a in r["aic_trace"]]
+            extra = (f" (greedy AIC {aics[0]:.2f} -> {aics[-1]:.2f} in "
+                     f"{len(aics)} steps, hybrid {r['hybrid_aics'][0]:.2f} "
+                     f"-> {r['hybrid_aics'][-1]:.2f})")
+        msgs.append(f"{name} (FAST) ok {sec:.1f} s{extra}")
+
+    counters = row_counters()
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        r = iclaims.run(False, device="cuda:0")
+    except AssertionError as e:
+        fail(f"tutorials: the iclaims flow's assert failed on the card: "
+             f"{e!r}")
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    missing = [k for k in MESH_PATH if launches[k] <= 0]
+    if missing:
+        fail(f"tutorials: iclaims never launched {missing}: {launches}")
+    model = r["model"]
+    p = model.particles
+    n_train = len(model.ds)
+    if not (p.params.device.type == "cuda" and model.num_particles == 8
+            and n_train == 354 and len(r["ds_query"]) == 469):
+        fail(f"tutorials: iclaims ran P={model.num_particles}, "
+             f"n={n_train}, {len(r['ds_query'])} query points on "
+             f"{p.params.device}")
+    live = p.lml > smc.BAD_LML
+    if not (bool(live.any()) and bool(torch.isfinite(p.lml[live]).all())):
+        fail(f"tutorials: iclaims' live LMLs not finite: {p.lml.tolist()}")
+    smc.validate_particles(p, model.config, tables=model.tables)
+    y_log = r["df"]["y"].to_numpy()
+    y_range = float(y_log.max() - y_log.min())
+    lml_rel, pred_err = top8_vs_f64_cpu(A, np, torch, model, r["forecasts"],
+                                        r["ds_query"], [0.025, 0.975],
+                                        y_range)
+    if not (lml_rel <= 1e-3 and pred_err <= 1e-3):
+        fail(f"tutorials: iclaims on the card vs float64 on the CPU, top 8:"
+             f" LML rel {lml_rel:.3e}, predict err / y-range {pred_err:.3e}")
+    t1 = time.perf_counter()
+    ref = A.from_dict(A.to_dict(model), device="cpu", dtype=torch.float64)
+    q_err = max(
+        float(np.abs(r[k] - A.predict_quantile(ref, r["ds_q"], q,
+                                               tol=1e-6)[0]).max())
+        for k, q in (("lo", 0.025), ("md", 0.5), ("hi", 0.975))) / y_range
+    ref_s = time.perf_counter() - t1
+    if not q_err <= 1e-3:
+        fail(f"tutorials: iclaims' quantiles vs float64 on the CPU: "
+             f"{q_err:.3e} of the y range (gate 1e-3)")
+    rs = model.round_stats
+    phase("tutorials", "; ".join(msgs) + f"; iclaims at its full budget "
+          f"(N={n_train} of {len(r['df'])} weeks in log space, P=8, "
+          f"linear_schedule({n_train}, .20), n_mcmc=50, n_hmc=10, shuffle, "
+          f"adaptive_resampling=False): fit {r['fit_s']:.1f} s, the flow "
+          f"{flow_s:.1f} s (predict at {len(r['ds_query'])} points, "
+          f"predict_quantile x 3 at {len(r['ds_q'])}, predict_mvn); per "
+          f"round (step, ESS before resampling, resampled, MH accepted, "
+          f"HMC sweeps, parameter-HMC accepted) " + ", ".join(
+              f"({q['step']}, {q['ess']:.2f}, {q['resampled']}, "
+              f"{q['mh_accepted']}, {q['hmc_sweeps']}, {q['hmc_accepted']})"
+              for q in rs)
+          + f"; launches { {k: launches[k] for k in MESH_PATH} }; best LML "
+          f"{float(p.lml.max()):.3f}; max log-normal mean bias "
+          f"{float(np.max(r['bias'])):.6g} (>= -1e-8); top-8 vs f64 CPU: "
+          f"LML rel {lml_rel:.3e}, predict err / y-range {pred_err:.3e}; "
+          f"quantiles vs f64 CPU {q_err:.3e} of the y range ({ref_s:.1f} "
+          f"s); validate_particles ok")
+    return launches
 
 
 def main():
@@ -2600,8 +2860,8 @@ def main():
     launches_c3 = greedy_phase(A, np, torch)
 
     # ---- 14. decompose: the decomposition API on phase 8's model -------
-    launches_decomp = decompose_phase(A, np, torch, model8, ds_future,
-                                      [.1, .5, .9])
+    launches_decomp, f64_row = decompose_phase(A, np, torch, model8,
+                                               ds_future, [.1, .5, .9])
 
     # ---- 15. depth: depth-annealed SMC on config 4's series ------------
     launches_depth = depth_phase(A, np, torch, t_days, y)
@@ -2611,6 +2871,9 @@ def main():
 
     # ---- 17. mesh: config 4 as two ranks through GPModel(mesh=) --------
     launches_mesh = mesh_phase(A, np, torch, t_days, y, ds_future, sched)
+
+    # ---- 18. tutorials: the five flows, iclaims at its full budget -----
+    launches_tut = tutorials_phase(A, np, torch)
 
     # Each kernel's launches are those of the path that is its own: the
     # config-4 fit (phase 8) for the first five, the online run (phase 12)
@@ -2622,6 +2885,8 @@ def main():
     launches.update(wd_launches)
     launches["cov_tape_bwd_unfused"] = online_launches[
         "cov_tape_bwd_unfused"]
+    # Kernel 1's float64 entry: phase 14's decompose of phase 8's model.
+    launches["cov_tape_f64"] = f64_row["launches"]
 
     def entry(name, src, replaces, err, ms, dev_ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda",
@@ -2635,11 +2900,16 @@ def main():
                 "launches_predict_mvn_sum": launches_decomp[name],
                 "launches_depth": launches_depth[name],
                 "launches_config2": launches_c2[name],
-                "launches_mesh_rank0": launches_mesh[name]}
+                "launches_mesh_rank0": launches_mesh[name],
+                "launches_tutorials": launches_tut[name]}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",
               cov_err, cov_ms, cov_dev_ms, cov_plain_ms, cov_bound, None),
+        entry("cov_tape_f64", "cov_tape_f64.cu",
+              "autogp_tpu/ops/cov_pallas.py:252", f64_row["abs_err"],
+              f64_row["ms"], f64_row["dev_ms"], f64_row["plain_ms"],
+              f64_row["bound"], None),
         entry("chol_panel", "chol_panel.cu",
               "autogp_tpu/ops/chol_pallas.py:46", chol_err, p_ms, p_dev_ms,
               p_plain_ms, chol_bound, p_lib_ms),

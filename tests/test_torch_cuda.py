@@ -890,3 +890,68 @@ def test_config2_sweeps_on_card_rescored_on_cpu(cuda):
                        data.mask, cfg,
                        TM.prior_tables(cfg, "cpu", torch.float64))[0])
     assert abs(float(r["lml"][0]) - ref) <= 1e-3 * abs(ref)
+
+
+def test_kernel5_shard_given_the_whole_batch_is_bitwise(cuda):
+    """Kernels 5, 5c, 5b and 7 on a 32-row shard of a [64, 1024, 1024]
+    batch, on the other half and on every fifth row (a compacted HMC
+    sweep's live lanes), each given part_batch = 64: every particle's
+    gradient torch.equal to its row of the whole batch's
+    (scripts/batch_bits.kernel5_shards)."""
+    from autogp_tpu_torch.scripts import batch_bits
+    res = batch_bits.kernel5_shards(cuda, N=1024)
+    assert len(res) == 12
+    assert all(n_bad == 0 for _, _, _, n_bad in res), res
+
+
+@pytest.mark.parametrize("N1,N2,gram,lower_only", [
+    (200, 200, True, False), (256, 256, True, True), (100, 37, False, False)])
+def test_cov_kernel_f64_matches_plain(cuda, N1, N2, gram, lower_only):
+    """Kernel 1's float64 entry (csrc/cov_tape_f64.cu) on 16 prior trees
+    of depth cap 8 against its plain version in float64 on the same
+    inputs: per-particle normwise <= 1e-12, gram and cross modes, masked
+    rows, one launch counted."""
+    f64 = torch.float64
+    cfg = C.GPConfig(max_depth=8)
+    tab = TM.prior_tables(cfg, cuda, f64)
+    gen = torch.Generator(device=cuda).manual_seed(N1 + N2)
+    nt, pz = TM.sample_tree(gen, 16, tab, f64, cuda)
+    pt = TM.transform_params(nt, pz, tab)
+    noise = TM.transform_noise(torch.randn(16, generator=gen, device=cuda,
+                                           dtype=f64), cfg)
+    t1 = torch.rand(N1, generator=gen, device=cuda, dtype=f64).sort().values
+    t2 = t1 if gram else torch.rand(N2, generator=gen, device=cuda,
+                                    dtype=f64)
+    m1 = (torch.arange(N1, device=cuda) < 3 * N1 // 4).to(f64)
+    m2 = m1 if gram else torch.ones(N2, device=cuda, dtype=f64)
+    before = cov.f64_launches
+    K = cov.cov_tape(nt, pt, noise, t1, t2, m1, m2, cfg.depth_cap, gram,
+                     lower_only)
+    torch.cuda.synchronize()
+    assert cov.f64_launches == before + 1 and K.dtype == f64
+    Kp = cov.cov_tape_plain(nt, pt, noise, t1, t2, m1, m2, cfg.depth_cap,
+                            gram, lower_only)
+    err = (K - Kp).abs().amax((1, 2)) / Kp.abs().amax((1, 2))
+    assert float(err.max()) <= 1e-12
+
+
+def test_decompose_fragment_lmls_match_f64_cpu(cuda):
+    """decompose on the card: every fragment LML that float64 finds finite
+    on the CPU (the model carried over by to_dict / from_dict) is finite
+    and within 1e-3 (kernel 1's float64 entry and a float64 Cholesky)."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    t = np.arange(512, dtype=np.float64)
+    y = np.sin(2 * np.pi * t / 52) + 0.02 * t
+    A.seed(5)
+    m = A.GPModel(t, y, n_particles=16)
+    before = cov.f64_launches
+    got = np.concatenate([s.particles.lml.double().cpu().numpy()
+                          for s in A.decompose(m)])
+    assert cov.f64_launches == before + 16
+    ref = A.from_dict(A.to_dict(m), device="cpu", dtype=torch.float64)
+    want = np.concatenate([s.particles.lml.numpy()
+                           for s in A.decompose(ref)])
+    fin = np.isfinite(want)
+    assert np.isfinite(got[fin]).all()
+    assert (np.abs(got[fin] - want[fin]) <= 1e-3 * np.abs(want[fin])).all()

@@ -52,14 +52,17 @@ def test_port_imports_without_jax():
 
 def test_import_leaves_the_jax_package_out():
     """`import autogp_tpu_torch`, its greedy and depth-annealing engines,
-    its online script and its HMC experiment load neither jax nor any
-    autogp_tpu module (the eight JAX-free modules are copies, not
-    re-exports)."""
+    its online script, its HMC experiment and its five tutorial flows
+    load neither jax nor any autogp_tpu module (the eight JAX-free modules
+    are copies, not re-exports; the flows keep their own loaders)."""
     code = ("import sys, autogp_tpu_torch\n"
             "import autogp_tpu_torch.inference.greedy\n"
             "import autogp_tpu_torch.inference.smc_depth\n"
             "import autogp_tpu_torch.scripts.online\n"
             "import autogp_tpu_torch.scripts.experiment_hmc\n"
+            "from autogp_tpu_torch.scripts.tutorials import (\n"
+            "    _common, callbacks, decomposition, greedy_mcmc, iclaims,\n"
+            "    overview)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m in ('jax', 'autogp_tpu')\n"
             "             or m.startswith(('jax.', 'autogp_tpu.')))\n"
