@@ -673,9 +673,9 @@ def split_kernel_sop(model: GPModel, leaf_type: Type[GP.LeafNode]
     adds levels), where the reference's encoding raises. Then both sides'
     sums are balanced (the same covariance, fewer levels) and the two
     models take the model's config with its depth cap raised to hold them
-    (max_depth, or static_max_depth where max_depth is unbounded): fit for
-    prediction, while the fitting kernels take depth caps up to 8. Under a
-    mesh, from the gathered batch, each rank keeping its rows."""
+    (max_depth, or static_max_depth where max_depth is unbounded), which
+    the kernels take at any depth (ops/cov.py TAPE_LIMITS). Under a mesh,
+    from the gathered batch, each rank keeping its rows."""
     kernels = model.covariance_kernels(reparameterize=False)
     splits = [GP.split_kernel_sop(k, leaf_type) for k in kernels]
     sides = [[s[i] for s in splits] for i in (0, 1)]

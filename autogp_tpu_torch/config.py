@@ -98,7 +98,8 @@ class GPConfig:
         shapes derive from it; the prior forces a leaf at this depth.
         Default 5 clips ~6.1% of the reference's unbounded prior mass
         (6: ~2.9%, 7: ~1.4%; BENCH.md "Pricing the depth cap"). The
-        port's kernels take depth caps up to 8 (ops/cov.py MAX_DEPTH).
+        port's kernels take any depth cap: they are bounded by the length
+        of a tree's tape, not by its heap (ops/cov.py TAPE_LIMITS).
     """
     node_dist_leaf: Tuple[float, ...] = _normalize([0., 1, 0, 1, 1])
     node_dist_nocp: Tuple[float, ...] = _normalize([0., 6, 0, 6, 6, 5, 5])

@@ -22,6 +22,7 @@
 // Cholesky factor is a chain of B dependent pivots, and its inverse
 // another chain behind them; a column at a time, each pivot costs block
 // barriers, and a row-by-row inverse is a serial chain of ~B^2/2 steps.
+// Depth: nothing here depends on the trees (it factors their grams).
 //
 // What the design does about it: a blocked recurrence over sub-panels of
 // kW = 16 columns, as the reference's own panel kernel used sub-panels

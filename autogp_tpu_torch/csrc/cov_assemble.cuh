@@ -4,6 +4,12 @@
 // bit. They differ only in where a block's tape comes from (staged from
 // the tape arrays, or compacted from the heap in the block's prologue).
 // The design and what bounds it: cov_tape.cu's header.
+//
+// Depth: the value stack's height comes from the batch's tallest tape
+// (ops/cov.py tape_maxima): registers for heights of up to 5, 8, 12 or 16
+// (one instance each), local memory above (kLocalDepth, which every heap
+// a C int can count fits). Every instance runs the same arithmetic on the
+// same values, so a tree's output is bitwise the same in each.
 
 #pragma once
 
@@ -16,6 +22,17 @@ constexpr int kRowsPerThread = 2;
 constexpr int kRows = kRowsPerPass * kRowsPerThread;  // rows per block
 constexpr int kVec = 4;              // neighbouring columns per thread
 constexpr int kCols = kTile * kVec;  // columns per block
+constexpr int kLocalDepth = 32;      // the stack in local memory
+
+// The value-stack instance for a batch whose tallest tape holds `height`
+// values at once (0 if none fits).
+__host__ __device__ inline int stack_instance(int height) {
+  return height <= 5    ? 5
+         : height <= 8  ? 8
+         : height <= 12 ? 12
+         : height <= 16 ? 16
+         : height <= kLocalDepth ? kLocalDepth : 0;
+}
 
 template <int T>
 __device__ __forceinline__ void leaf_vec(const float* p, float t1,
@@ -24,16 +41,60 @@ __device__ __forceinline__ void leaf_vec(const float* p, float t1,
   for (int e = 0; e < kVec; ++e) v[e] = leaf_value(T, p, t1, t2[e]);
 }
 
+// A leaf of type t (not 0) at (t1, t2[e]), e < kVec, into lv.
+__device__ __forceinline__ void leaf_vec_of(int t, const float* p, float t1,
+                                            const float* t2, float* lv) {
+  switch (t) {
+    case CONSTANT: leaf_vec<CONSTANT>(p, t1, t2, lv); break;
+    case LINEAR: leaf_vec<LINEAR>(p, t1, t2, lv); break;
+    case SQUARED_EXPONENTIAL:
+      leaf_vec<SQUARED_EXPONENTIAL>(p, t1, t2, lv);
+      break;
+    case GAMMA_EXPONENTIAL:
+      leaf_vec<GAMMA_EXPONENTIAL>(p, t1, t2, lv);
+      break;
+    case PERIODIC: leaf_vec<PERIODIC>(p, t1, t2, lv); break;
+    default: leaf_vec<WHITE_NOISE>(p, t1, t2, lv); break;
+  }
+}
+
+// eval_tape_vec with the stack in local memory, indexed by its height:
+// for trees taller than the register instances. The same operations on
+// the same values as the register stack.
+__device__ __forceinline__ void eval_tape_vec_local(
+    const int* __restrict__ type, int len, const float* __restrict__ par,
+    float t1, const float* t2, float* v) {
+  float st[kLocalDepth][kVec];
+  int sp = 0;  // values on the stack
+  for (int q = 0; q < len; ++q) {
+    const int t = type[q];
+    const float* p = par + 3 * q;
+    if (is_op(t)) {
+      // The top is the right operand, the one below it the left. An
+      // operator with no children (the heap's last level) reads what is
+      // there, as the register stack does: its value is undefined.
+      const int r = max(sp - 1, 0), l = max(sp - 2, 0);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        st[l][e] = op_value(t, p, st[l][e], st[r][e], t1, t2[e]);
+      sp = l + 1;
+    } else if (t != 0 && sp < kLocalDepth) {
+      leaf_vec_of(t, p, t1, t2, st[sp]);
+      ++sp;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) v[e] = sp > 0 ? st[sp - 1][e] : 0.0f;
+}
+
 // The tree at (t1, t2[e]), e < kVec, by the post-order tape: values pushed
 // by leaves, two popped and one pushed by operators, st[0] the top. DEPTH
-// bounds the stack (a tree of D levels needs D slots).
+// bounds the stack (the tape's height: a tree of D levels needs at most
+// D).
 template <int DEPTH>
-__device__ __forceinline__ void eval_tape_vec(const int* __restrict__ slot,
-                                              const int* __restrict__ type,
-                                              int len,
-                                              const float* __restrict__ par,
-                                              float t1, const float* t2,
-                                              float* v) {
+__device__ __forceinline__ void eval_tape_vec_regs(
+    const int* __restrict__ type, int len, const float* __restrict__ par,
+    float t1, const float* t2, float* v) {
   float st[DEPTH][kVec];
 #pragma unroll
   for (int k = 0; k < DEPTH; ++k)
@@ -41,7 +102,7 @@ __device__ __forceinline__ void eval_tape_vec(const int* __restrict__ slot,
     for (int e = 0; e < kVec; ++e) st[k][e] = 0.0f;
   for (int q = 0; q < len; ++q) {
     const int t = type[q];
-    const float* p = par + 3 * slot[q];
+    const float* p = par + 3 * q;
     if (is_op(t)) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
@@ -56,24 +117,26 @@ __device__ __forceinline__ void eval_tape_vec(const int* __restrict__ slot,
 #pragma unroll
         for (int e = 0; e < kVec; ++e) st[k][e] = st[k - 1][e];
       float lv[kVec];
-      switch (t) {
-        case CONSTANT: leaf_vec<CONSTANT>(p, t1, t2, lv); break;
-        case LINEAR: leaf_vec<LINEAR>(p, t1, t2, lv); break;
-        case SQUARED_EXPONENTIAL:
-          leaf_vec<SQUARED_EXPONENTIAL>(p, t1, t2, lv);
-          break;
-        case GAMMA_EXPONENTIAL:
-          leaf_vec<GAMMA_EXPONENTIAL>(p, t1, t2, lv);
-          break;
-        case PERIODIC: leaf_vec<PERIODIC>(p, t1, t2, lv); break;
-        default: leaf_vec<WHITE_NOISE>(p, t1, t2, lv); break;
-      }
+      leaf_vec_of(t, p, t1, t2, lv);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) st[0][e] = lv[e];
     }
   }
 #pragma unroll
   for (int e = 0; e < kVec; ++e) v[e] = st[0][e];
+}
+
+// The register instance DEPTH, or the local-memory stack (kLocalDepth).
+template <int DEPTH>
+__device__ __forceinline__ void eval_tape_vec(const int* __restrict__ type,
+                                              int len,
+                                              const float* __restrict__ par,
+                                              float t1, const float* t2,
+                                              float* v) {
+  if constexpr (DEPTH == kLocalDepth)
+    eval_tape_vec_local(type, len, par, t1, t2, v);
+  else
+    eval_tape_vec_regs<DEPTH>(type, len, par, t1, t2, v);
 }
 
 // A thread's kVec = 4 neighbouring floats of a row as one 16-byte store
@@ -96,11 +159,12 @@ __device__ __forceinline__ bool needs_tree(int i, int j, int N2,
 // Block (blockIdx.x, blockIdx.y) of particle blockIdx.z: rows i0 = 16 by,
 // columns j0 = 128 bx of out [N1, N2] (outp, this particle's matrix).
 // `stage()` is called, by every thread, only if an element of the tile
-// needs the tree: it fills s_slot / s_type (the tape) and s_par (the
-// [M, 3] parameters), ends with a barrier and returns the tape's length.
+// needs the tree: it fills s_type (the tape's types) and s_par (the
+// parameters, [len, 3] by tape position), ends with a barrier
+// and returns the tape's length.
 template <int DEPTH, class Stage>
 __device__ __forceinline__ void assemble_tile(
-    Stage&& stage, const int* __restrict__ s_slot,
+    Stage&& stage,
     const int* __restrict__ s_type, const float* __restrict__ s_par,
     float nz, const float* __restrict__ t_row,
     const float* __restrict__ t_col, const float* __restrict__ m_row,
@@ -154,7 +218,7 @@ __device__ __forceinline__ void assemble_tile(
       any |= keep[e];
     }
     float v[kVec];
-    if (any) eval_tape_vec<DEPTH>(s_slot, s_type, len, s_par, t_row[i], t2, v);
+    if (any) eval_tape_vec<DEPTH>(s_type, len, s_par, t_row[i], t2, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       const bool diag = gram && (i == jt + e);

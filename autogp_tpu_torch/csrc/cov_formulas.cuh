@@ -32,8 +32,15 @@
 namespace autogp {
 
 constexpr int kTile = 32;        // tile edge of every covariance kernel
-constexpr int kMaxDepth = 8;     // value stack bound (depth_cap <= 8)
-constexpr int kMaxSlots = 255;   // 2^8 - 1 heap slots
+
+// Depth. No kernel is sized by the heap's M = 2^D - 1 slots: each stages
+// its block's tape (the active slots in post-order), with each position's
+// parameters gathered through its slot ([len, 3], not the heap's [M, 3]),
+// in dynamic shared memory sized by the batch's longest tape, and a heap
+// of any depth runs. What remains is the longest tape a block can stage
+// (each kernel's header and ops/cov.py give the number): a block has at
+// most kSmemPerBlock bytes of shared memory on this card.
+constexpr int kSmemPerBlock = 232448;  // 227 KB, H100 (opt-in maximum)
 
 // Node-type codes: autogp_tpu_torch/config.py.
 constexpr int CONSTANT = 1, LINEAR = 2, SQUARED_EXPONENTIAL = 3,

@@ -28,12 +28,19 @@
 // 1's tile body on it (cov_assemble.cuh `assemble_tile`: 16-row x
 // 128-column tiles, threads (32, 8), 4 columns x 2 rows a thread, the value
 // stack in registers, 16-byte stores, masked elements and whole masked
-// blocks skipped). Warp 0 walks `order` 32 slots at a time (at most 8
-// chunks at M = 255): each lane reads one slot's type, a ballot marks the
-// active ones and a popcount of the lanes below gives each its tape
-// position, while the other warps stage the [M, 3] parameters. The
-// output is therefore bitwise kernel 1's full gram. One launch per call;
-// the wrapper builds no tape.
+// blocks skipped). The warps walk `order` in chunks of 32 slots, in rounds
+// of up to 256 chunks: each warp ballots its chunks (a lane a slot, active
+// or not), warp 0 scans the chunks' counts into their first tape
+// positions, and each active lane writes its slot's type and parameters
+// at its position (its chunk's first plus a popcount of the lanes below).
+// The output is therefore bitwise kernel 1's full gram. One launch per
+// call; the wrapper builds no tape.
+//
+// What bounds it in depth: the tape, as in kernel 1 -- the batch's longest
+// tape L and tallest stack (ops/cov.py heap_maxima, from the heap) size
+// the staging (16 bytes a position) and pick the stack instance; the
+// round's chunk table takes 2 KB more. The longest tape a block stages is
+// 14399 positions.
 //
 // An operator on the heap's last level (no room for children; the prior
 // never samples one) stays on the tape, as build_tape keeps it, and pops
@@ -45,6 +52,15 @@ namespace {
 
 using namespace autogp;
 
+constexpr int kWarpsPerBlock = kRowsPerPass;   // 8
+constexpr int kRoundChunks = 256;              // chunks of 32 slots a round
+
+// Shared memory of one block: s_par [L, 3] floats, s_type [L] ints, the
+// length, and the round's chunk masks and first positions.
+inline size_t slot_smem(int L) {
+  return 16 * (size_t)L + 4 * (1 + 2 * kRoundChunks);
+}
+
 template <int DEPTH>
 __global__ void __launch_bounds__(kTile * kRowsPerPass)
 cov_slot_kernel(const int* __restrict__ node_type,
@@ -52,64 +68,106 @@ cov_slot_kernel(const int* __restrict__ node_type,
                 const float* __restrict__ params,
                 const float* __restrict__ noise, const float* __restrict__ ts,
                 const float* __restrict__ mask, float* __restrict__ out,
-                int M, int N, int masked) {
-  __shared__ int s_slot[kMaxSlots];
-  __shared__ int s_type[kMaxSlots];
-  __shared__ float s_par[3 * kMaxSlots];
-  __shared__ int s_len;
+                int M, int L, int N, int masked) {
+  extern __shared__ float smem_f[];
+  float* s_par = smem_f;
+  int* s_type = reinterpret_cast<int*>(s_par + 3 * L);
+  int* s_len = s_type + L;
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_len + 1);
+  int* s_first = reinterpret_cast<int*>(s_mask + kRoundChunks);
 
   const int p = blockIdx.z;
-  // The particle's tape, compacted from its heap by warp 0, and its
-  // parameters.
-  auto stage = [&]() {
-    const int tx = threadIdx.x;
-    const int tid = threadIdx.y * kTile + tx;
-    const int nthreads = kTile * kRowsPerPass;
-    for (int k = tid; k < 3 * M; k += nthreads)
-      s_par[k] = params[(size_t)p * 3 * M + k];
-    if (threadIdx.y == 0) {
-      const int* heap = node_type + (size_t)p * M;
-      int len = 0;
-      for (int q0 = 0; q0 < M; q0 += kTile) {
-        const int q = q0 + tx;
-        const int s = q < M ? order[q] : 0;
-        const int t = q < M ? heap[s] : 0;
-        const unsigned act = __ballot_sync(0xffffffffu, t != 0);
-        if (t != 0) {
-          const int at = len + __popc(act & ((1u << tx) - 1u));
-          s_slot[at] = s;
-          s_type[at] = t;
-        }
-        len += __popc(act);
-      }
-      if (tx == 0) s_len = len;
-    }
-    __syncthreads();
-    return s_len;
+  const int* heap = node_type + (size_t)p * M;
+  const float* pp = params + (size_t)p * 3 * M;
+  const int tx = threadIdx.x, warp = threadIdx.y;
+  const unsigned below = (1u << tx) - 1u;
+  // Slot q of the post-order and its type (0 past the heap).
+  auto slot_at = [&](int q, int& s, int& t) {
+    s = q < M ? order[q] : 0;
+    t = q < M ? heap[s] : 0;
   };
-  assemble_tile<DEPTH>(stage, s_slot, s_type, s_par, noise[p], ts, ts, mask,
-                       mask, out + (size_t)p * N * N, N, N, 1, masked, 0);
+  // The particle's tape, compacted from its heap by every warp, a round of
+  // up to 256 chunks at a time.
+  auto stage = [&]() {
+    int len = 0;
+    for (int r0 = 0; r0 < M; r0 += kRoundChunks * kTile) {
+      const int nc = min(kRoundChunks, (M - r0 + kTile - 1) / kTile);
+      for (int c = warp; c < nc; c += kWarpsPerBlock) {
+        int s, t;
+        slot_at(r0 + c * kTile + tx, s, t);
+        const unsigned act = __ballot_sync(0xffffffffu, t != 0);
+        if (tx == 0) s_mask[c] = act;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // First tape position of each chunk: an exclusive scan of the
+        // chunks' counts, 32 chunks at a time.
+        int base = len;
+        for (int c0 = 0; c0 < nc; c0 += kTile) {
+          const int c = c0 + tx;
+          const int n = c < nc ? __popc(s_mask[c]) : 0;
+          int x = n;
+          for (int o = 1; o < kTile; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, x, o);
+            if (tx >= o) x += y;
+          }
+          if (c < nc) s_first[c] = base + x - n;
+          base += __shfl_sync(0xffffffffu, x, kTile - 1);
+        }
+        if (tx == 0) *s_len = base;
+      }
+      __syncthreads();
+      for (int c = warp; c < nc; c += kWarpsPerBlock) {
+        int s, t;
+        slot_at(r0 + c * kTile + tx, s, t);
+        if (t != 0) {
+          const int at = s_first[c] + __popc(s_mask[c] & below);
+          s_type[at] = t;
+          s_par[3 * at] = pp[3 * s];
+          s_par[3 * at + 1] = pp[3 * s + 1];
+          s_par[3 * at + 2] = pp[3 * s + 2];
+        }
+      }
+      len = *s_len;
+      __syncthreads();   // the round's table is read before it is reused
+    }
+    return len;
+  };
+  assemble_tile<DEPTH>(stage, s_type, s_par, noise[p], ts, ts, mask, mask,
+                       out + (size_t)p * N * N, N, N, 1, masked, 0);
 }
 
 }  // namespace
 
 // node_type [P, M] int32 heaps; order [M] int32, the post-order of the full
 // heap; params [P, M, 3], noise [P], ts and mask [N] float32; out [P, N, N]
-// float32. Any N >= 1.
+// float32. Any N >= 1. max_len and max_height: the batch's longest tape
+// and tallest stack (ops/cov.py heap_maxima).
 extern "C" int autogp_cov_slot(const void* node_type, const void* order,
                                const void* params, const void* noise,
                                const void* ts, const void* mask, void* out,
-                               int P, int M, int N, int masked,
-                               void* stream) {
-  if (M < 1 || M > kMaxSlots || N < 1 || P < 1)
+                               int P, int M, int N, int masked, int max_len,
+                               int max_height, void* stream) {
+  const int depth = stack_instance(max_height);
+  const size_t smem = slot_smem(max_len);
+  if (M < 1 || N < 1 || P < 1 || max_len < 1 || max_len > M || depth == 0 ||
+      smem > (size_t)kSmemPerBlock)
     return (int)cudaErrorInvalidValue;
+  auto kernel = depth == 5    ? cov_slot_kernel<5>
+                : depth == 8  ? cov_slot_kernel<8>
+                : depth == 12 ? cov_slot_kernel<12>
+                : depth == 16 ? cov_slot_kernel<16>
+                              : cov_slot_kernel<kLocalDepth>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 block(kTile, kRowsPerPass);
   dim3 grid((N + kCols - 1) / kCols, (N + kRows - 1) / kRows, P);
-  // A heap of M = 2^D - 1 slots holds trees of at most D levels.
-  auto kernel = M <= 31 ? cov_slot_kernel<5> : cov_slot_kernel<kMaxDepth>;
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int*)node_type, (const int*)order, (const float*)params,
       (const float*)noise, (const float*)ts, (const float*)mask, (float*)out,
-      M, N, masked);
+      M, max_len, N, masked);
   return (int)cudaGetLastError();
 }

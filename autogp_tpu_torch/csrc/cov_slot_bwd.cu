@@ -34,17 +34,23 @@
 // - heap_tape_kernel, one warp per particle, writes the post-order tape
 //   of the active slots -- (slot, type, lpos, rpos) [P, M] and the length
 //   [P], the arrays ops/cov.py build_tape writes, entry for entry -- into
-//   scratch the wrapper allocates. It walks `order` 32 slots at a time (at
-//   most 8 chunks at M = 255): each lane reads one slot's type, a ballot
-//   marks the active ones and a popcount of the lanes below gives each its
-//   tape position (and every slot the position build_tape gives it); a
-//   second pass reads each position's children's positions.
+//   scratch the wrapper allocates. It walks `order` 32 slots at a time:
+//   each lane reads one slot's type, a ballot marks the active ones and a
+//   popcount of the lanes below gives each its tape position (and every
+//   slot, in a [P, M] map of the same scratch, the position build_tape
+//   gives it); a second pass reads each position's children's positions.
+//   Everything it writes is in device memory, so a heap of any M
+//   compacts.
 // - autogp_cov_tape_bwd_unfused, kernel 5b's entry, on those tapes: its
 //   body (runs of tiles per block, per-thread double accumulators under a
 //   compact term index, stacks sized by the block's own tape, particles
 //   ranked by decreasing tape length), then reduce_tiles_kernel over the
-//   [P, chunks, 3M + 1] partials. The same kernels on the same tapes, so
+//   [P, chunks, 3L + 1] partials. The same kernels on the same tapes, so
 //   the result is bitwise 5b's on the same inputs.
+//
+// What bounds it in depth: 5b's limit, a tape of at most 1754 positions
+// (cov_tape_bwd.cu); the batch's longest tape L (ops/cov.py heap_maxima)
+// sizes 5b's tables and partials.
 //
 // An operator on the heap's last level (no room for children; the prior
 // never samples one) stays on the tape with no child positions (lpos =
@@ -58,7 +64,7 @@ extern "C" int autogp_cov_tape_bwd_unfused(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kbar, void* partial, void* out, int P,
-    int M, int N, int masked, int part_batch, void* stream);
+    int M, int N, int masked, int max_len, int part_batch, void* stream);
 
 namespace {
 
@@ -66,23 +72,22 @@ using namespace autogp;
 
 constexpr int kTapeWarps = 4;  // particles per block of heap_tape_kernel
 
-// Warp w of block b compacts particle 4 b + w's heap into its tape.
+// Warp w of block b compacts particle 4 b + w's heap into its tape; tpos
+// [P, M] takes each slot's tape position.
 __global__ void __launch_bounds__(32 * kTapeWarps)
 heap_tape_kernel(const int* __restrict__ node_type,
                  const int* __restrict__ order, int* __restrict__ tslot,
                  int* __restrict__ ttype, int* __restrict__ tlpos,
-                 int* __restrict__ trpos, int* __restrict__ tlen, int P,
-                 int M) {
-  __shared__ int s_pos[kTapeWarps][kMaxSlots];   // tape position of a slot
-  __shared__ int s_slot[kTapeWarps][kMaxSlots];  // slot of a position
-  __shared__ int s_type[kTapeWarps][kMaxSlots];
+                 int* __restrict__ trpos, int* __restrict__ tpos,
+                 int* __restrict__ tlen, int P, int M) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p = blockIdx.x * kTapeWarps + w;
   if (p >= P) return;
-  int* pos = s_pos[w];
-  int* slot = s_slot[w];
-  int* type = s_type[w];
-  const int* heap = node_type + (long long)p * M;
+  const long long row = (long long)p * M;
+  int* pos = tpos + row;
+  int* slot = tslot + row;
+  int* type = ttype + row;
+  const int* heap = node_type + row;
 
   // Active slots in post-order. Every slot gets build_tape's position:
   // the active slots up to and including it in post-order, less one.
@@ -100,22 +105,22 @@ heap_tape_kernel(const int* __restrict__ node_type,
     }
     len += __popc(act);
   }
-  __syncwarp();
+  __syncwarp();   // the lanes' writes above, seen by the whole warp
 
-  // The tape; no-ops (slot 0, type 0, no children) from the length on.
-  const long long row = (long long)p * M;
+  // The children's positions; no-ops (slot 0, type 0, no children) from
+  // the length on.
   for (int q = lane; q < M; q += 32) {
-    int s = 0, t = 0, l = -1, r = -1;
+    int l = -1, r = -1;
     if (q < len) {
-      s = slot[q];
-      t = type[q];
+      const int s = slot[q];
       if (2 * s + 1 < M) {  // M = 2^D - 1: then 2s + 2 < M too
         l = pos[2 * s + 1];
         r = pos[2 * s + 2];
       }
+    } else {
+      slot[q] = 0;
+      type[q] = 0;
     }
-    tslot[row + q] = s;
-    ttype[row + q] = t;
     tlpos[row + q] = l;
     trpos[row + q] = r;
   }
@@ -126,31 +131,34 @@ heap_tape_kernel(const int* __restrict__ node_type,
 
 // node_type [P, M] int32 heaps (M = 2^D - 1); order [M] int32, the
 // post-order of the full heap; params [P, M, 3], ts and mask [N], kbar
-// [P, N, N] float32; tapes scratch [4 P M + P] int32 (the tape's slot,
-// type, lpos and rpos [P, M] each, then the lengths [P]); partial scratch
-// [P, chunks, 3M + 1] float64, chunks = min(n^2, max(1, 8448 /
-// part_batch)) for n = ceil(N / 32) (ops/cov_vjp.py bwd_chunks, unfused);
-// out [P, 3M + 1] float32. Any N >= 1; part_batch >= P, the batch whose
-// partition the backward uses (autogp_cov_tape_bwd_unfused).
+// [P, N, N] float32; tapes scratch [5 P M + P] int32 (the tape's slot,
+// type, lpos and rpos [P, M] each, the slots' positions [P, M], then the
+// lengths [P]); max_len: the batch's longest tape (ops/cov.py
+// heap_maxima), at most 1754; partial scratch [P, chunks, 3 max_len + 1]
+// float64, chunks = min(n^2, max(1, 8448 / part_batch)) for n =
+// ceil(N / 32) (ops/cov_vjp.py bwd_chunks, unfused); out [P, 3M + 1]
+// float32. Any N >= 1; part_batch >= P, the batch whose partition the
+// backward uses (autogp_cov_tape_bwd_unfused).
 extern "C" int autogp_cov_slot_bwd(const void* node_type, const void* order,
                                    const void* params, const void* ts,
                                    const void* mask, const void* kbar,
                                    void* tapes, void* partial, void* out,
                                    int P, int M, int N, int masked,
-                                   int part_batch, void* stream) {
-  if (M < 1 || M > kMaxSlots || (M & (M + 1)) != 0 || N < 1 || P < 1 ||
-      part_batch < P)
+                                   int max_len, int part_batch,
+                                   void* stream) {
+  if (M < 1 || (M & (M + 1)) != 0 || N < 1 || P < 1 || part_batch < P ||
+      max_len < 1 || max_len > M)
     return (int)cudaErrorInvalidValue;
   int* tp = (int*)tapes;
   const long long pm = (long long)P * M;
   heap_tape_kernel<<<(P + kTapeWarps - 1) / kTapeWarps, 32 * kTapeWarps, 0,
                      (cudaStream_t)stream>>>(
       (const int*)node_type, (const int*)order, tp, tp + pm, tp + 2 * pm,
-      tp + 3 * pm, tp + 4 * pm, P, M);
+      tp + 3 * pm, tp + 4 * pm, tp + 5 * pm, P, M);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return autogp_cov_tape_bwd_unfused(tp, tp + pm, tp + 2 * pm, tp + 3 * pm,
-                                     tp + 4 * pm, params, ts, mask, kbar,
-                                     partial, out, P, M, N, masked,
+                                     tp + 5 * pm, params, ts, mask, kbar,
+                                     partial, out, P, M, N, masked, max_len,
                                      part_batch, stream);
 }

@@ -27,11 +27,12 @@
 //
 // What the design does about it: one thread block per (particle, 16-row x
 // 128-column tile), threads (32, 8), each thread four neighbouring columns
-// of two rows. The block stages its particle's tape and [M, 3] parameters
-// in shared memory (broadcast reads). A thread runs the tape once per row
+// of two rows. The block stages its particle's tape and parameters in
+// shared memory (broadcast reads). A thread runs the tape once per row
 // for its four columns together: the value stack lives in registers as
 // [depth][4] shifted at compile-time positions (pushes and pops are
-// register moves; depth 5 for heaps of up to 31 slots, kMaxDepth above),
+// register moves; depth 5, 8, 12 or 16 by the batch's tallest tape, local
+// memory above: cov_assemble.cuh),
 // each instruction's type and parameters are read and dispatched once for
 // the four elements, their chains interleave, and the four results leave
 // as one 16-byte store, so a warp writes 512 contiguous bytes per row
@@ -47,12 +48,22 @@
 // cov_assemble.cuh's `assemble_tile`, which the per-slot kernel
 // (cov_slot.cu, kernel 6) runs on the same tape, so the two grams agree
 // bit for bit.
+//
+// What bounds it in depth: the tape, not the heap. Shared memory holds the
+// batch's longest tape, L = max_len positions: the type and the three
+// parameters of each (16 L bytes; the parameters gathered through the
+// position's slot), so a 1023-slot heap of config 4's trees stages what a
+// 31-slot one does. The longest tape a block stages is 14528 positions
+// (16 bytes each in kSmemPerBlock); a longer one is refused before launch.
 
 #include "cov_assemble.cuh"
 
 namespace {
 
 using namespace autogp;
+
+// Shared memory of one block: s_par [L, 3] floats, then s_type [L] ints.
+inline size_t tape_smem(int L) { return 16 * (size_t)L; }
 
 template <int DEPTH>
 __global__ void __launch_bounds__(kTile * kRowsPerPass)
@@ -63,49 +74,68 @@ cov_tape_kernel(const int* __restrict__ tslot, const int* __restrict__ ttype,
                 const float* __restrict__ t_col,
                 const float* __restrict__ m_row,
                 const float* __restrict__ m_col, float* __restrict__ out,
-                int M, int N1, int N2, int gram, int lower_only) {
-  __shared__ int s_slot[kMaxSlots];
-  __shared__ int s_type[kMaxSlots];
-  __shared__ float s_par[3 * kMaxSlots];
+                int M, int L, int N1, int N2, int gram, int lower_only) {
+  extern __shared__ float smem_f[];
+  float* s_par = smem_f;
+  int* s_type = reinterpret_cast<int*>(s_par + 3 * L);
 
   const int p = blockIdx.z;
-  // The particle's tape and parameters, from the tape arrays.
+  // The particle's tape (its first L positions: no-ops past its length)
+  // and each position's parameters, gathered through its slot.
   auto stage = [&]() {
     const int tid = threadIdx.y * kTile + threadIdx.x;
     const int nthreads = kTile * kRowsPerPass;
-    for (int k = tid; k < M; k += nthreads) {
-      s_slot[k] = tslot[(size_t)p * M + k];
+    const float* pp = params + (size_t)p * 3 * M;
+    for (int k = tid; k < L; k += nthreads) {
+      const int s = tslot[(size_t)p * M + k];
       s_type[k] = ttype[(size_t)p * M + k];
+      s_par[3 * k] = pp[3 * s];
+      s_par[3 * k + 1] = pp[3 * s + 1];
+      s_par[3 * k + 2] = pp[3 * s + 2];
     }
-    for (int k = tid; k < 3 * M; k += nthreads)
-      s_par[k] = params[(size_t)p * 3 * M + k];
     __syncthreads();
     return tlen[p];
   };
-  assemble_tile<DEPTH>(stage, s_slot, s_type, s_par, noise[p], t_row, t_col,
+  assemble_tile<DEPTH>(stage, s_type, s_par, noise[p], t_row, t_col,
                        m_row, m_col, out + (size_t)p * N1 * N2, N1, N2, gram,
                        1, lower_only);
 }
 
 }  // namespace
 
+// Tapes [P, M] (slot, type) int32 and lengths [P]; params [P, M, 3], noise
+// [P], t_row, m_row [N1], t_col, m_col [N2], out [P, N1, N2] float32;
+// max_len and max_height: the batch's longest tape and tallest stack
+// (ops/cov.py tape_maxima), which size the staging and pick the stack.
 extern "C" int autogp_cov_tape(const void* tslot, const void* ttype,
                                const void* tlen, const void* params,
                                const void* noise, const void* t_row,
                                const void* t_col, const void* m_row,
                                const void* m_col, void* out, int P, int M,
                                int N1, int N2, int gram, int lower_only,
-                               void* stream) {
-  if (M > kMaxSlots) return (int)cudaErrorInvalidValue;
+                               int max_len, int max_height, void* stream) {
+  const int depth = stack_instance(max_height);
+  const size_t smem = tape_smem(max_len);
+  if (M < 1 || max_len < 1 || max_len > M || depth == 0 ||
+      smem > (size_t)kSmemPerBlock)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = depth == 5    ? cov_tape_kernel<5>
+                : depth == 8  ? cov_tape_kernel<8>
+                : depth == 12 ? cov_tape_kernel<12>
+                : depth == 16 ? cov_tape_kernel<16>
+                              : cov_tape_kernel<kLocalDepth>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 block(kTile, kRowsPerPass);
   dim3 grid((N2 + kCols - 1) / kCols, (N1 + kRows - 1) / kRows, P);
-  // A heap of M = 2^D - 1 slots holds trees of at most D levels.
-  auto kernel = M <= 31 ? cov_tape_kernel<5> : cov_tape_kernel<kMaxDepth>;
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int*)tslot, (const int*)ttype, (const int*)tlen,
       (const float*)params, (const float*)noise, (const float*)t_row,
       (const float*)t_col, (const float*)m_row, (const float*)m_col,
-      (float*)out, M, N1, N2, gram, lower_only);
+      (float*)out, M, max_len, N1, N2, gram, lower_only);
   return (int)cudaGetLastError();
 }
 

@@ -97,11 +97,13 @@
 //   per-tape term index (position q's terms at off[q] + k, a warp scan;
 //   <= 2 len + 2 terms with the noise), over every element it visits.
 //   Once per block, after the last tile, each warp sums its lanes term by
-//   term with xor shuffles and the warps are summed in order into the
-//   block's partial [P, chunks, 3M + 1]; a second small pass sums each
-//   particle's chunks in order. No atomics: the gradient repeats bit for
-//   bit from run to run, and the fused and in-tape entries share every
-//   sum.
+//   term with xor shuffles into its first lane's accumulator and the
+//   warps are summed in order into the block's partial, at the compact
+//   index: [P, chunks, 3L + 1] for the batch's longest tape L. A second
+//   small pass sums each particle's chunks in order and scatters the sums
+//   to the [P, 3M + 1] output's slots (0 at inactive ones). No atomics:
+//   the gradient repeats bit for bit from run to run, and the fused and
+//   in-tape entries share every sum.
 // - Values (float), adjoints (double) and the accumulators are sized by
 //   the block's own tape, not by the heap's M: the block runs
 //   T = min(256, budget / (12 len + 8 terms)) of its 256 threads (a
@@ -116,6 +118,16 @@
 //   an SM that still runs the whole grid at once, so that a long tape
 //   keeps its threads. The in-tape entry's staging strips take the stack
 //   memory, idle until a tile's sweeps.
+// - What bounds it in depth: the tape, not the heap. The tables a block
+//   stages (the types, children, term offsets and parameters of the
+//   batch's longest tape, L positions: 28 L bytes, the parameters
+//   gathered through each position's slot) and the partial's rows are
+//   sized by L, so a 1023-slot heap of config 4's trees costs what a
+//   31-slot one does. One thread of a block needs 12 len + 8 terms
+//   bytes of the budget, and a tree of len positions has at most 2 len + 2
+//   terms: the longest tape a block stages is 1754 positions (48 KB), 1662
+//   in the in-tape entry (46 KB less its 20 KB of staging). A longer one
+//   is refused before launch.
 // - A thread loads the next element's K^-1 (or cotangent) value before
 //   the current element's sweeps.
 //
@@ -147,6 +159,8 @@ constexpr int kVStages = 2;               // the in-tape entry's ring
 // Its staging, and 16 bytes to align it.
 constexpr int kStaging = kVStages * kVStage * (int)sizeof(float) + 16;
 constexpr int kTargetBlocks = 8448;       // 16 x 4 blocks x 132 SMs
+constexpr int kTapeLimit = 1754;          // longest tape: 12 L + 8 (2 L + 2)
+constexpr int kTapeLimitLinv = 1662;      // <= kBudget; in-tape as above
 
 // Gradient terms of a tape instruction of type t: the acc(base + k) calls
 // of ref_leaf_grad / ref_op_adjoint.
@@ -199,6 +213,27 @@ struct ThreadAcc {
     a[idx * T + tid] += term;
   }
 };
+
+// Compact term offsets of a tape of `len` positions with types `type`, by
+// warp 0 (an exclusive scan, 32 positions at a time, as the backward
+// kernel's): s_off[q] for q < len; returns the terms with the noise's.
+__device__ int term_offsets(const int* __restrict__ type, int len,
+                            int* s_off) {
+  const int lane = threadIdx.x % 32;
+  int base = 0;
+  for (int q0 = 0; q0 < len; q0 += 32) {
+    const int q = q0 + lane;
+    const int c = q < len ? terms_of(type[q]) : 0;
+    int x = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (q < len) s_off[q] = base + x - c;
+    base += __shfl_sync(0xffffffffu, x, 31);
+  }
+  return base + 1;
+}
 
 // K^-1[i, j] = sum_{r >= 32 ti} V[r, i] V[r, j] for the tile (ti, tj), into
 // kinv_t[i - 32 ti][j - 32 tj], on the tensor cores. Warp w (= ty) owns
@@ -272,21 +307,17 @@ cov_tape_bwd_kernel(
     const float* __restrict__ ts, const float* __restrict__ mask,
     const float* __restrict__ kmat, const float* __restrict__ beta,
     const float* __restrict__ gscale, double* __restrict__ partial, int M,
-    int N, int masked, int budget) {
+    int L, int N, int masked, int budget) {
   extern __shared__ __align__(16) double smem_d[];
-  const int n_acc = 3 * M + 1;
   const int nt = (N + kTile - 1) / kTile;
   double* region = smem_d;                                // budget bytes
-  double* wsum = smem_d + budget / 8;                     // [kWarps][2M + 2]
-  float* s_par = reinterpret_cast<float*>(wsum + kWarps * (2 * M + 2));
-  float* kinv_t = s_par + 3 * M;                          // LINV: [32][32]
-  int* s_slot = reinterpret_cast<int*>(kinv_t + (LINV ? kTile * kTile : 0));
-  int* s_type = s_slot + M;                               // [M] each
-  int* s_l = s_type + M;
-  int* s_r = s_l + M;
-  int* s_off = s_r + M;
-  int* s_cof = s_off + M;                                 // [3M + 1]
-  int* s_rows = s_cof + n_acc;                            // [nt]
+  float* s_par = reinterpret_cast<float*>(smem_d + budget / 8);  // [L, 3]
+  float* kinv_t = s_par + 3 * L;                          // LINV: [32][32]
+  int* s_type = reinterpret_cast<int*>(kinv_t + (LINV ? kTile * kTile : 0));
+  int* s_l = s_type + L;                      // s_type to s_off: [L] each
+  int* s_r = s_l + L;
+  int* s_off = s_r + L;
+  int* s_rows = s_off + L;                                // [nt]
   int* s_misc = s_rows + nt;                  // terms, rows, particle
   int* s_len = s_misc + 3;                                // [P]
 
@@ -311,17 +342,19 @@ cov_tape_bwd_kernel(
   const int p = s_misc[2];
   const int len = s_len[p];
 
-  // Staging: the tape, the parameters, and (fused) which tile rows hold an
-  // active point.
-  for (int k = tid; k < M; k += kThreads) {
-    s_slot[k] = tslot[(long long)p * M + k];
+  // Staging: the tape (its first L positions: no-ops past its length), each
+  // position's parameters gathered through its slot, and (fused) which
+  // tile rows hold an active point.
+  const float* pp = params + (long long)p * 3 * M;
+  for (int k = tid; k < L; k += kThreads) {
+    const int s = tslot[(long long)p * M + k];
     s_type[k] = ttype[(long long)p * M + k];
     s_l[k] = tlpos[(long long)p * M + k];
     s_r[k] = trpos[(long long)p * M + k];
+    s_par[3 * k] = pp[3 * s];
+    s_par[3 * k + 1] = pp[3 * s + 1];
+    s_par[3 * k + 2] = pp[3 * s + 2];
   }
-  for (int k = tid; k < 3 * M; k += kThreads)
-    s_par[k] = params[(long long)p * 3 * M + k];
-  for (int k = tid; k < n_acc; k += kThreads) s_cof[k] = -1;
   if (FUSED) {
     for (int r = warp; r < nt; r += kWarps) {
       const unsigned act =
@@ -332,21 +365,9 @@ cov_tape_bwd_kernel(
   __syncthreads();
   constexpr unsigned kAll = 0xffffffffu;
   if (warp == 0) {
-    // Compact term offsets, in tape order: an exclusive scan of the terms
-    // per position, 32 positions at a time. The noise's term is the last.
-    int base = 0;
-    for (int q0 = 0; q0 < len; q0 += 32) {
-      const int q = q0 + lane;
-      const int c = q < len ? terms_of(s_type[q]) : 0;
-      int x = c;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kAll, x, o);
-        if (lane >= o) x += y;
-      }
-      if (q < len) s_off[q] = base + x - c;
-      base += __shfl_sync(kAll, x, 31);
-    }
-    if (lane == 0) s_misc[0] = base + 1;
+    // Compact term offsets, in tape order. The noise's term is the last.
+    const int n = term_offsets(s_type, len, s_off);
+    if (lane == 0) s_misc[0] = n;
   } else if (warp == 1) {
     // The active tile rows, in order (in place: a row is read before any
     // lane writes at or below it).
@@ -364,11 +385,6 @@ cov_tape_bwd_kernel(
   }
   __syncthreads();
   const int n_terms = s_misc[0];
-  for (int q = tid; q < len; q += kThreads) {
-    const int c = terms_of(s_type[q]);
-    for (int k = 0; k < c; ++k) s_cof[3 * s_slot[q] + k] = s_off[q] + k;
-  }
-  if (tid == 0) s_cof[n_acc - 1] = n_terms - 1;
   const int T = bwd_threads(len, n_terms, LINV, budget);
   double* acc_d = region;                                 // [n_terms][T]
   double* adj = acc_d + n_terms * T;                      // [len][T]
@@ -446,7 +462,7 @@ cov_tape_bwd_kernel(
 
       // Forward sweep: the value of every tape position.
       for (int q = 0; q < len; ++q) {
-        const float* pr = s_par + 3 * s_slot[q];
+        const float* pr = s_par + 3 * q;
         const int t = s_type[q];
         val[q * T + tid] =
             is_op(t) ? ref_op_value(t, pr, val[s_l[q] * T + tid],
@@ -459,7 +475,7 @@ cov_tape_bwd_kernel(
       if (len > 0) adj[(len - 1) * T + tid] = kb;
       for (int q = len - 1; q >= 0; --q) {
         const int t = s_type[q];
-        const float* pr = s_par + 3 * s_slot[q];
+        const float* pr = s_par + 3 * q;
         const double a = adj[q * T + tid];
         if (is_op(t)) {
           double al, ar;
@@ -477,43 +493,74 @@ cov_tape_bwd_kernel(
   __syncthreads();
   // split: barrier
 
-  // Each warp sums its lanes term by term, then the warps in order into
-  // this block's partial, at the terms' slot indices (0 elsewhere).
-  for (int c = 0; c < n_terms; ++c) {
-    const double v = warp_sum(tid < T ? acc_d[c * T + tid] : 0.0);
-    if (lane == 0) wsum[warp * (2 * M + 2) + c] = v;
-  }
+  // Each warp with accumulators sums its lanes term by term into its first
+  // lane's (a warp whose lanes all idle adds nothing: its sum is +0),
+  // then the warps are summed in order into this block's partial at the
+  // compact term index.
+  const int n_warps = (T + 31) / 32;
+  if (warp < n_warps)
+    for (int c = 0; c < n_terms; ++c) {
+      const double v = warp_sum(tid < T ? acc_d[c * T + tid] : 0.0);
+      if (lane == 0) acc_d[c * T + tid] = v;
+    }
   __syncthreads();
-  double* out = partial + ((long long)p * gridDim.x + blockIdx.x) * n_acc;
-  for (int k = tid; k < n_acc; k += kThreads) {
-    const int c = s_cof[k];
+  double* out = partial + ((long long)p * gridDim.x + blockIdx.x) *
+                              (3 * (long long)L + 1);
+  for (int c = tid; c < n_terms; c += kThreads) {
     double s = 0.0;
-    if (c >= 0)
-      for (int w = 0; w < kWarps; ++w) s += wsum[w * (2 * M + 2) + c];
-    out[k] = s;
+    for (int w = 0; w < n_warps; ++w) s += acc_d[c * T + 32 * w];
+    out[c] = s;
   }
   // split: partials
 }
 
-// out[p, k] = sum over tiles of partial[p, tile, k], tiles in order.
+// out[p, 3 s + k] = sum over tiles of partial[p, tile, off[q] + k], tiles
+// in order, for tape position q of slot s and its terms k; out[p, 3M] the
+// noise's (the last term); 0 at every other slot. Block p: warp 0 scans
+// the tape's term offsets, each position writes where its terms go, then
+// a thread per term sums its chunks. Dynamic shared memory: s_off [L], the
+// terms' destinations [3 L + 1] and the count.
 __global__ void reduce_tiles_kernel(const double* __restrict__ partial,
-                                    float* __restrict__ out,
-                                    int n_tiles, int n_acc) {
+                                    const int* __restrict__ tslot,
+                                    const int* __restrict__ ttype,
+                                    const int* __restrict__ tlen,
+                                    float* __restrict__ out, int n_tiles,
+                                    int M, int L) {
+  extern __shared__ int s_off[];
+  int* s_dest = s_off + L;
+  int* s_terms = s_dest + 3 * L + 1;
   const int p = blockIdx.x;
-  const double* pp = partial + (long long)p * n_tiles * n_acc;
-  for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
+  const int len = tlen[p];
+  const int* type = ttype + (long long)p * M;
+  const int stride = 3 * L + 1;
+  if (threadIdx.x < 32) {
+    const int n_terms = term_offsets(type, len, s_off);
+    if (threadIdx.x == 0) {
+      *s_terms = n_terms;
+      s_dest[n_terms - 1] = 3 * M;
+    }
+  }
+  float* op = out + (long long)p * (3 * M + 1);
+  for (int k = threadIdx.x; k < 3 * M + 1; k += blockDim.x) op[k] = 0.0f;
+  __syncthreads();
+  for (int q = threadIdx.x; q < len; q += blockDim.x) {
+    const int s = tslot[(long long)p * M + q];
+    const int n = terms_of(type[q]);
+    for (int k = 0; k < n; ++k) s_dest[s_off[q] + k] = 3 * s + k;
+  }
+  __syncthreads();
+  const double* pp = partial + (long long)p * n_tiles * stride;
+  for (int c = threadIdx.x; c < *s_terms; c += blockDim.x) {
     double s = 0.0;
-    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * n_acc + k];
-    out[(long long)p * n_acc + k] = (float)s;
+    for (int t = 0; t < n_tiles; ++t) s += pp[(long long)t * stride + c];
+    op[s_dest[c]] = (float)s;
   }
 }
 
 // Dynamic shared memory of one block besides the accumulators and
-// stacks, in bytes.
-int bwd_table_bytes(int M, int nt, int P, bool linv) {
-  return 8 * kWarps * (2 * M + 2) + 4 * 3 * M +
-         (linv ? 4 * kTile * kTile : 0) +
-         4 * (5 * M + 3 * M + 1 + nt + 3 + P);
+// stacks, in bytes, for tapes of up to L positions.
+int bwd_table_bytes(int L, int nt, int P, bool linv) {
+  return 28 * L + (linv ? 4 * kTile * kTile : 0) + 4 * (nt + 3 + P);
 }
 
 // Bytes for the accumulators and stacks: `base` (kBudget; kBudgetLinv for
@@ -543,19 +590,26 @@ int bwd_budget(int blocks, int tables, int base) {
 // grouped by it alone, so a batch of some of the particles (a mesh's
 // shard, HMC's live lanes) given the whole batch's count adds each
 // particle's terms in the same order, bit for bit, as the whole batch.
+// The budget's tables are counted for the longest tape the heap allows,
+// min(M, the entry's limit), not for this batch's: they too must not
+// depend on which particles a launch holds.
 template <bool FUSED, bool LINV>
 int launch(const void* tslot, const void* ttype, const void* tlpos,
            const void* trpos, const void* tlen, const void* params,
            const void* ts, const void* mask, const void* kmat,
            const void* beta, const void* g, void* partial, void* out, int P,
-           int M, int N, int masked, int part_batch, void* stream) {
+           int M, int N, int masked, int L, int part_batch, void* stream) {
+  const int limit = LINV ? kTapeLimitLinv : kTapeLimit;
+  if (M < 1 || N < 1 || P < 1 || part_batch < P || L < 1 || L > M ||
+      L > limit)
+    return (int)cudaErrorInvalidValue;
   const int nt = (N + kTile - 1) / kTile;
   const int chunks = bwd_chunks(part_batch, tile_count(FUSED, nt));
   const int budget =
       bwd_budget(chunks * part_batch,
-                 bwd_table_bytes(M, nt, part_batch, LINV),
+                 bwd_table_bytes(min(M, limit), nt, part_batch, LINV),
                  LINV ? kBudgetLinv : kBudget);
-  const int smem = budget + bwd_table_bytes(M, nt, P, LINV);
+  const int smem = budget + bwd_table_bytes(L, nt, P, LINV);
   cudaError_t err = cudaFuncSetAttribute(
       cov_tape_bwd_kernel<FUSED, LINV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -566,12 +620,13 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
       (const int*)tslot, (const int*)ttype, (const int*)tlpos,
       (const int*)trpos, (const int*)tlen, (const float*)params,
       (const float*)ts, (const float*)mask, (const float*)kmat,
-      (const float*)beta, (const float*)g, (double*)partial, M, N, masked,
-      budget);
+      (const float*)beta, (const float*)g, (double*)partial, M, L, N,
+      masked, budget);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_tiles_kernel<<<P, 128, 0, s>>>((const double*)partial, (float*)out,
-                                        chunks, 3 * M + 1);
+  reduce_tiles_kernel<<<P, 128, 4 * (4 * L + 2), s>>>(
+      (const double*)partial, (const int*)tslot, (const int*)ttype,
+      (const int*)tlen, (float*)out, chunks, M, L);
   return (int)cudaGetLastError();
 }
 
@@ -579,51 +634,49 @@ int launch(const void* tslot, const void* ttype, const void* tlpos,
 
 // Tapes [P, M] int32 (slot, type, lpos, rpos) and lengths [P]; params
 // [P, M, 3], ts and mask [N], kinv [P, N, N] lower-only, beta [P, N],
-// g [P], all float32; partial scratch [P, chunks, 3M + 1] float64, chunks =
-// min(n(n + 1) / 2, max(1, 8448 / part_batch)) for n = N / 32
-// (ops/cov_vjp.py bwd_chunks); out [P, 3M + 1] float32. N must be a
+// g [P], all float32; max_len: the batch's longest tape (ops/cov.py
+// tape_maxima), at most 1754; partial scratch [P, chunks, 3 max_len + 1]
+// float64, chunks = min(n(n + 1) / 2, max(1, 8448 / part_batch)) for n =
+// N / 32 (ops/cov_vjp.py bwd_chunks); out [P, 3M + 1] float32. N must be a
 // multiple of 32; part_batch >= P is the batch whose partition to use.
 extern "C" int autogp_cov_tape_bwd(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kinv, const void* beta, const void* g,
-    void* partial, void* out, int P, int M, int N, int part_batch,
-    void* stream) {
-  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1 || part_batch < P)
-    return (int)cudaErrorInvalidValue;
+    void* partial, void* out, int P, int M, int N, int max_len,
+    int part_batch, void* stream) {
+  if (N % kTile != 0) return (int)cudaErrorInvalidValue;
   return launch<true, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                              mask, kinv, beta, g, partial, out, P, M, N, 1,
-                             part_batch, stream);
+                             max_len, part_batch, stream);
 }
 
 // The arguments of autogp_cov_tape_bwd, with V = L^-1 [P, N, N] (exact
-// zeros above the diagonal) in place of K^-1.
+// zeros above the diagonal) in place of K^-1; max_len at most 1662.
 extern "C" int autogp_cov_tape_bwd_linv(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* linv, const void* beta, const void* g,
-    void* partial, void* out, int P, int M, int N, int part_batch,
-    void* stream) {
-  if (M < 1 || M > kMaxSlots || N % kTile != 0 || P < 1 || part_batch < P)
-    return (int)cudaErrorInvalidValue;
+    void* partial, void* out, int P, int M, int N, int max_len,
+    int part_batch, void* stream) {
+  if (N % kTile != 0) return (int)cudaErrorInvalidValue;
   return launch<true, true>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                             mask, linv, beta, g, partial, out, P, M, N, 1,
-                            part_batch, stream);
+                            max_len, part_batch, stream);
 }
 
 // The same tapes, params, ts and mask; kbar [P, N, N] float32, the
 // cotangent of the assembled matrix, multiplied by mask_i mask_j when
-// `masked`; partial scratch [P, chunks, 3M + 1] float64, chunks =
-// min(n^2, max(1, 8448 / part_batch)) for n = ceil(N / 32); out [P, 3M + 1]
-// float32. Any N >= 1; part_batch >= P as above.
+// `masked`; max_len as above (at most 1754); partial scratch [P, chunks,
+// 3 max_len + 1] float64, chunks = min(n^2, max(1, 8448 / part_batch)) for
+// n = ceil(N / 32); out [P, 3M + 1] float32. Any N >= 1; part_batch >= P
+// as above.
 extern "C" int autogp_cov_tape_bwd_unfused(
     const void* tslot, const void* ttype, const void* tlpos,
     const void* trpos, const void* tlen, const void* params, const void* ts,
     const void* mask, const void* kbar, void* partial, void* out, int P,
-    int M, int N, int masked, int part_batch, void* stream) {
-  if (M < 1 || M > kMaxSlots || N < 1 || P < 1 || part_batch < P)
-    return (int)cudaErrorInvalidValue;
+    int M, int N, int masked, int max_len, int part_batch, void* stream) {
   return launch<false, false>(tslot, ttype, tlpos, trpos, tlen, params, ts,
                               mask, kbar, nullptr, nullptr, partial, out, P,
-                              M, N, masked, part_batch, stream);
+                              M, N, masked, max_len, part_batch, stream);
 }

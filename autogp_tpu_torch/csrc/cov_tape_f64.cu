@@ -28,6 +28,14 @@
 // particle's tape and parameters staged in shared memory, the value stack
 // in local memory. A tile whose elements need no tree (above the diagonal
 // with lower_only, or all masked) runs no tape.
+//
+// What bounds it in depth: the tape. A block stages the batch's longest
+// tape, L = max_len positions, each its type and its three parameters
+// gathered through its slot (28 bytes: no [M, 3] table), in dynamic
+// shared memory; the stack (local memory, indexed by its height) holds
+// kLocalDepth values, as tall as any heap a C int can count. The longest
+// tape a block stages is 8301 positions (28 bytes each in kSmemPerBlock);
+// a longer one is refused before launch.
 
 #include "cov_formulas.cuh"
 
@@ -84,24 +92,27 @@ __device__ double op_value_d(int t, const double* p, double left,
   }
 }
 
-// The tree at (t1, t2) by the post-order tape: leaves push, operators pop
-// two and push one.
-__device__ double eval_tape_d(const int* s_slot, const int* s_type, int len,
+constexpr int kLocalDepth = 32;   // the value stack (local memory)
+
+// The tree at (t1, t2) by the post-order tape, its parameters by tape
+// position: leaves push, operators pop two and push one. An operator
+// with no children (the heap's last level) reads what is there.
+__device__ double eval_tape_d(const int* s_type, int len,
                               const double* s_par, double t1, double t2) {
-  double st[kMaxDepth + 1];
+  double st[kLocalDepth];
   int sp = 0;
   for (int q = 0; q < len; ++q) {
     const int t = s_type[q];
-    const double* p = s_par + 3 * s_slot[q];
+    const double* p = s_par + 3 * q;
     if (is_op(t)) {
-      const double right = st[--sp];
-      const double left = st[--sp];
-      st[sp++] = op_value_d(t, p, left, right, t1, t2);
-    } else {
+      const int r = max(sp - 1, 0), l = max(sp - 2, 0);
+      st[l] = op_value_d(t, p, st[l], st[r], t1, t2);
+      sp = l + 1;
+    } else if (sp < kLocalDepth) {
       st[sp++] = leaf_value_d(t, p, t1, t2);
     }
   }
-  return len > 0 ? st[0] : 0.0;
+  return sp > 0 ? st[sp - 1] : 0.0;
 }
 
 __global__ void __launch_bounds__(kTile * 8)
@@ -114,20 +125,22 @@ cov_tape_f64_kernel(const int* __restrict__ tslot,
                     const double* __restrict__ t_col,
                     const double* __restrict__ m_row,
                     const double* __restrict__ m_col,
-                    double* __restrict__ out, int M, int N1, int N2,
-                    int gram, int lower_only) {
-  __shared__ int s_slot[kMaxSlots];
-  __shared__ int s_type[kMaxSlots];
-  __shared__ double s_par[3 * kMaxSlots];
+                    double* __restrict__ out, int M, int L, int N1,
+                    int N2, int gram, int lower_only) {
+  extern __shared__ double smem_d[];
+  double* s_par = smem_d;                                 // [L, 3]
+  int* s_type = reinterpret_cast<int*>(s_par + 3 * L);    // [L]
   const int p = blockIdx.z;
   const int tid = threadIdx.y * kTile + threadIdx.x;
   const int i0 = blockIdx.y * kTile, j = blockIdx.x * kTile + threadIdx.x;
-  for (int k = tid; k < M; k += kTile * 8) {
-    s_slot[k] = tslot[(size_t)p * M + k];
+  const double* pp = params + (size_t)p * 3 * M;
+  for (int k = tid; k < L; k += kTile * 8) {
+    const int s = tslot[(size_t)p * M + k];
     s_type[k] = ttype[(size_t)p * M + k];
+    s_par[3 * k] = pp[3 * s];
+    s_par[3 * k + 1] = pp[3 * s + 1];
+    s_par[3 * k + 2] = pp[3 * s + 2];
   }
-  for (int k = tid; k < 3 * M; k += kTile * 8)
-    s_par[k] = params[(size_t)p * 3 * M + k];
   __syncthreads();
   if (j >= N2) return;
   const int len = tlen[p];
@@ -139,7 +152,7 @@ cov_tape_f64_kernel(const int* __restrict__ tslot,
     if (lower_only && j > i) {
       v = 0.0;
     } else if (m_row[i] * m_col[j] > 0.0) {
-      v = eval_tape_d(s_slot, s_type, len, s_par, t_row[i], t_col[j]);
+      v = eval_tape_d(s_type, len, s_par, t_row[i], t_col[j]);
       if (gram && i == j) v = v + noise[p];
     } else {
       v = (gram && i == j) ? 1.0 : 0.0;
@@ -151,22 +164,32 @@ cov_tape_f64_kernel(const int* __restrict__ tslot,
 }  // namespace
 
 // cov_tape.cu's autogp_cov_tape with params [P, M, 3], noise [P], t_row,
-// m_row [N1], t_col, m_col [N2] and out [P, N1, N2] in float64.
+// m_row [N1], t_col, m_col [N2] and out [P, N1, N2] in float64; max_len:
+// the batch's longest tape (ops/cov.py tape_maxima), which sizes the
+// staging.
 extern "C" int autogp_cov_tape_f64(const void* tslot, const void* ttype,
                                    const void* tlen, const void* params,
                                    const void* noise, const void* t_row,
                                    const void* t_col, const void* m_row,
                                    const void* m_col, void* out, int P,
                                    int M, int N1, int N2, int gram,
-                                   int lower_only, void* stream) {
-  if (M > kMaxSlots || M > (1 << kMaxDepth) - 1)
+                                   int lower_only, int max_len,
+                                   void* stream) {
+  const size_t smem = 28 * (size_t)max_len;
+  if (M < 1 || max_len < 1 || max_len > M || smem > (size_t)kSmemPerBlock)
     return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cov_tape_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 block(kTile, 8);
   dim3 grid((N2 + kTile - 1) / kTile, (N1 + kTile - 1) / kTile, P);
-  cov_tape_f64_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  cov_tape_f64_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int*)tslot, (const int*)ttype, (const int*)tlen,
       (const double*)params, (const double*)noise, (const double*)t_row,
       (const double*)t_col, (const double*)m_row, (const double*)m_col,
-      (double*)out, M, N1, N2, gram, lower_only);
+      (double*)out, M, max_len, N1, N2, gram, lower_only);
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,8 @@
 //   columns of V and rely on them. beta and fro are computed by the same
 //   code as without it, so the two agree bit for bit.
 //
+// Depth: nothing here depends on the trees (it works on their factors).
+//
 // What bounds it on this card: operations. At [64, 1024, 1024] the
 // substitution is N^3/3 flops per particle (22.9 GFLOP in all; the blocked
 // form does ~1.4x that, the diagonal blocks' Wd products included) and

@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core step shared by the kinv kernels (kinv.cu) and the
 // in-tape K^-1 tiles of the tape backward (cov_tape_bwd.cu), and the
-// cp.async copies that stage their operands.
+// cp.async copies that stage their operands. Depth: nothing here depends
+// on the trees.
 //
 // One FP32 product a * b on the TF32 tensor cores: every operand x is
 // split into hi = tf32(x) (round to nearest) and lo = tf32(x - hi), and the

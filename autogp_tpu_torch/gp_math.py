@@ -161,30 +161,49 @@ def _combine(t, p, left, right, t1, t2):
             + torch.where(tt == C.CHANGEPOINT, k_cp, zero))
 
 
+def _live_subtrees(node_type, depth_cap: int) -> np.ndarray:
+    """[M] bools on the host: whether the subtree rooted at each slot holds
+    an active slot in any heap of the batch (the root always counts)."""
+    live = (node_type != 0).any(0).cpu().numpy().copy()
+    for d in range(depth_cap - 2, -1, -1):
+        s = np.arange((1 << d) - 1, (1 << (d + 1)) - 1)
+        live[s] |= live[2 * s + 1] | live[2 * s + 2]
+    live[0] = True
+    return live
+
+
 def eval_cov(node_type, params, ts1, ts2, depth_cap: int):
     """Covariance matrices [P, N1, N2] of the encoded trees on ts1 x ts2.
 
     node_type [P, M]; params [P, M, 3] already transformed to constrained
-    space (model.transform_params); ts1 [N1]; ts2 [N2]."""
+    space (model.transform_params); ts1 [N1]; ts2 [N2]. Slot by slot in
+    post-order, as the reference's evaluator; a subtree empty in every
+    heap of the batch is exactly 0 there (each of its slots selects the
+    zero of every formula), so it is taken as 0 without evaluating its
+    2^k - 1 slots: a deep heap costs what its active slots do."""
     M = (1 << depth_cap) - 1
     t1 = ts1[None, :, None]
     t2 = ts2[None, None, :]
     bottom = M // 2  # slots >= bottom are at the deepest level: leaves only.
-    stack = []
-    for s in postorder(depth_cap):
+    live = _live_subtrees(node_type, depth_cap)
+    dtype = torch.promote_types(params.dtype, ts1.dtype)
+    empty = torch.zeros((node_type.shape[0], ts1.shape[0], ts2.shape[0]),
+                        dtype=dtype, device=params.device)
+
+    def rec(s):
+        if not live[s]:
+            return empty
         t = node_type[:, s]
         p = params[:, s]
         if s >= bottom:
-            val = _leaf_cov(t, p, t1, t2)
-        else:
-            right = stack.pop()
-            left = stack.pop()
-            leaf_val = _leaf_cov(t, p, t1, t2)
-            op_val = _combine(t, p, left, right, t1, t2)
-            val = torch.where(is_op_code(t)[:, None, None], op_val, leaf_val)
-        stack.append(val)
-    assert len(stack) == 1
-    return stack[0]
+            return _leaf_cov(t, p, t1, t2)
+        left = rec(2 * s + 1)
+        right = rec(2 * s + 2)
+        leaf_val = _leaf_cov(t, p, t1, t2)
+        op_val = _combine(t, p, left, right, t1, t2)
+        return torch.where(is_op_code(t)[:, None, None], op_val, leaf_val)
+
+    return rec(0)
 
 
 # ---------------------------------------------------------------------------

@@ -37,12 +37,13 @@ _LL = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p.
 SIGNATURES = {
     # tape slot, tape type, tape length, params, noise, t_row, t_col,
-    # mask_row, mask_col, out, P, M, N1, N2, gram, lower_only, stream
+    # mask_row, mask_col, out, P, M, N1, N2, gram, lower_only, max_len,
+    # max_height, stream
     "autogp_cov_tape": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _P],
-    # the same in float64 (cov_tape_f64.cu)
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same in float64 (cov_tape_f64.cu), without max_height
     "autogp_cov_tape_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _P],
     # A, batch stride, row stride, L out, Linv out, P, B, stream
     "autogp_chol_panel": [_P, _LL, _LL, _P, _P, _I, _I, _P],
     # L, wd, alpha, X scratch, beta, fro_part scratch, fro, kinv (or
@@ -51,24 +52,34 @@ SIGNATURES = {
     # L, wd, alpha, V out, beta, fro_part scratch, fro, P, N, stream
     "autogp_linv_beta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kinv, beta,
-    # g, partial scratch, out, P, M, N, part_batch, stream
+    # g, partial scratch, out, P, M, N, max_len, part_batch, stream
     "autogp_cov_tape_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _P],
+                            _P, _P, _I, _I, _I, _I, _I, _P],
     # the same, with V = L^-1 in place of K^-1
     "autogp_cov_tape_bwd_linv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _I, _I, _I, _I, _P],
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # tape slot, type, lpos, rpos, length, params, ts, mask, kbar, partial
-    # scratch, out, P, M, N, masked, part_batch, stream
+    # scratch, out, P, M, N, masked, max_len, part_batch, stream
     "autogp_cov_tape_bwd_unfused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _P],
+                                    _P, _I, _I, _I, _I, _I, _I, _P],
     # node_type, post-order, params, noise, ts, mask, out, P, M, N, masked,
-    # stream
-    "autogp_cov_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # max_len, max_height, stream
+    "autogp_cov_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     # node_type, post-order, params, ts, mask, kbar, tapes scratch, partial
-    # scratch, out, P, M, N, masked, part_batch, stream
+    # scratch, out, P, M, N, masked, max_len, part_batch, stream
     "autogp_cov_slot_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _P],
+                            _I, _I, _I, _P],
 }
+
+# The batch's tape maxima each entry takes (max_len, and max_height where
+# the stack is picked by it), just before part_batch where there is one,
+# else just before the stream. Older trees, which the A/B scripts may
+# build, size every kernel by the heap and take none.
+MAXIMA_ARGS = {"autogp_cov_tape": 2, "autogp_cov_tape_f64": 1,
+               "autogp_cov_slot": 2, "autogp_cov_tape_bwd": 1,
+               "autogp_cov_tape_bwd_linv": 1,
+               "autogp_cov_tape_bwd_unfused": 1, "autogp_cov_slot_bwd": 1}
 
 # The entries of kernels 5 and 7 that take the partition's batch
 # (`part_batch`) just before the stream.
@@ -83,13 +94,25 @@ def takes_part_batch(src: str) -> bool:
     return "int part_batch" in src
 
 
-def entry_argtypes(name: str, part_batch: bool = True) -> list:
-    """SIGNATURES[name], without the part_batch argument for a source
-    whose entries do not take it."""
-    sig = SIGNATURES[name]
-    if part_batch or name not in PART_BATCH_ENTRIES:
-        return sig
-    return sig[:-2] + sig[-1:]
+def takes_tape_maxima(src: str) -> bool:
+    """Whether a kernel source text `src` has entries that take the
+    batch's tape maxima (MAXIMA_ARGS)."""
+    return "int max_len" in src
+
+
+def entry_argtypes(name: str, part_batch: bool = True,
+                   maxima: bool = True) -> list:
+    """SIGNATURES[name], without the part_batch argument or the tape
+    maxima for a source whose entries do not take them."""
+    sig = list(SIGNATURES[name])
+    end = len(sig) - 1                       # the stream
+    if name in PART_BATCH_ENTRIES:
+        end -= 1
+        if not part_batch:
+            del sig[end]
+    if not maxima:
+        del sig[end - MAXIMA_ARGS.get(name, 0):end]
+    return sig
 
 _lib = None
 build_log = ""   # nvcc's output (-Xptxas -v: registers, spills)

@@ -84,9 +84,9 @@ BWD_BUDGET_LINV = 46 * 1024
 BWD_TARGET_BLOCKS = 8448
 BWD_STAGING = 2 * 2 * TILE * (TILE + 8) * 4 + 16
 
-# Gradient terms of a tape instruction, by node type (config.py codes 1-9):
-# the acc(base + k) calls of the kernel's ref_leaf_grad / ref_op_adjoint.
-TERMS_OF_TYPE = (0, 1, 3, 2, 3, 3, 0, 0, 1, 1)
+# Gradient terms of a tape instruction, by node type (config.py codes 1-9).
+TERMS_OF_TYPE = cov.TERMS_OF_TYPE
+tape_terms = cov.tape_terms
 
 # LmlTapeFused's backward backend: False = K^-1 by the kinv kernel, then
 # kernel 5; True = L^-1 by the kinv kernel, then kernel 5's in-tape mode.
@@ -115,14 +115,17 @@ def bwd_chunks(P: int, N: int, fused: bool,
     return min(tiles, max(1, BWD_TARGET_BLOCKS // part_of(P, part_batch)))
 
 
-def given_scratch(P: int, M: int, N: int, part_batch: int | None = None):
+def given_scratch(P: int, M: int, N: int, part_batch: int | None = None,
+                  max_len: int | None = None):
     """Shapes of the scratch of the given-cotangent entries: the partial
-    sums [P, bwd_chunks(P, N, False, part_batch), 3M + 1] (float64) of the
-    unfused body, which `cov_grads` runs too, and `cov_grads`' tapes
-    [4 P M + P] (int32: slot, type, lpos and rpos [P, M] each, then the
-    lengths)."""
-    return ((P, bwd_chunks(P, N, False, part_batch), 3 * M + 1),
-            (4 * P * M + P,))
+    sums [P, bwd_chunks(P, N, False, part_batch), 3 L + 1] (float64) of
+    the unfused body, which `cov_grads` runs too, for the batch's longest
+    tape L = max_len (default M: at most 3 L + 1 terms), and `cov_grads`'
+    tapes [5 P M + P] (int32: slot, type, lpos and rpos [P, M] each, each
+    slot's tape position [P, M], then the lengths)."""
+    L = M if max_len is None else max_len
+    return ((P, bwd_chunks(P, N, False, part_batch), 3 * L + 1),
+            (5 * P * M + P,))
 
 
 def bwd_threads(length: int, n_terms: int, linv: bool,
@@ -142,14 +145,6 @@ def bwd_threads(length: int, n_terms: int, linv: bool,
         t = min(t, (budget - BWD_STAGING) // (8 * n_terms))
     t = min(t, BWD_THREADS)
     return t // 32 * 32 if t >= 32 else max(t, 1)
-
-
-def tape_terms(tape_type, length):
-    """Gradient terms of each tape [P], the noise's included."""
-    per = torch.as_tensor(TERMS_OF_TYPE, device=tape_type.device)
-    valid = (torch.arange(tape_type.shape[1], device=tape_type.device)[None]
-             < length[:, None])
-    return (per[tape_type.long()] * valid).sum(1) + 1
 
 
 def tile_runs(mask, P: int, fused: bool, part_batch: int | None = None):
@@ -188,31 +183,34 @@ def cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower, beta, g,
 
 
 def cov_tape_bwd(node_type, params_t, ts, mask, kinv_lower, beta, g,
-                 depth_cap: int, *, part_batch: int | None = None):
+                 depth_cap: int, *, part_batch: int | None = None,
+                 tape: cov.Tape | None = None):
     """(pbar [P, M, 3], nbar [P]): the gradient of sum_p g_p LML_p with
     respect to params_t [P, M, 3] and noise [P], given the lower-only
     K^-1 [P, N, N] and beta = K^-1 x [P, N] of each particle's gram.
 
     node_type [P, M]; ts, mask [N]; g [P]. CUDA tensors launch the kernel
     (float32, or it raises) with the partition of `part_batch` >= P
-    particles (default P), CPU tensors take `cov_tape_bwd_plain`."""
+    particles (default P), CPU tensors take `cov_tape_bwd_plain`. `tape`:
+    the batch's `cov.tape` if the caller has it (None: built here)."""
     global launches
     if not backend.on_cuda(params_t):
         return cov_tape_bwd_plain(node_type, params_t, ts, mask, kinv_lower,
                                   beta, g, depth_cap)
     out = _launch(node_type, params_t, ts, mask, kinv_lower, beta, g,
-                  depth_cap, linv=False, part_batch=part_batch)
+                  depth_cap, linv=False, part_batch=part_batch, tp=tape)
     launches += 1
     return out
 
 
 def cov_tape_bwd_linv(node_type, params_t, ts, mask, V, beta, g,
-                      depth_cap: int, *, part_batch: int | None = None):
+                      depth_cap: int, *, part_batch: int | None = None,
+                      tape: cov.Tape | None = None):
     """`cov_tape_bwd` given V = L^-1 [P, N, N] (exact zeros above the
     diagonal, as `kinv.linv_beta` returns it) in place of the lower-only
     K^-1: the kernel forms each K^-1 tile from two column strips of V.
-    CUDA tensors launch the kernel (float32, or it raises; `part_batch` as
-    in `cov_tape_bwd`), CPU tensors take `cov_tape_bwd_plain` on
+    CUDA tensors launch the kernel (float32, or it raises; `part_batch` and
+    `tape` as in `cov_tape_bwd`), CPU tensors take `cov_tape_bwd_plain` on
     `gp_math.kinv_from_linv(V)`."""
     global linv_launches
     if not backend.on_cuda(params_t):
@@ -220,13 +218,13 @@ def cov_tape_bwd_linv(node_type, params_t, ts, mask, V, beta, g,
                                   gp_math.kinv_from_linv(V), beta, g,
                                   depth_cap)
     out = _launch(node_type, params_t, ts, mask, V, beta, g, depth_cap,
-                  linv=True, part_batch=part_batch)
+                  linv=True, part_batch=part_batch, tp=tape)
     linv_launches += 1
     return out
 
 
 def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
-            linv: bool, part_batch: int | None):
+            linv: bool, part_batch: int | None, tp: cov.Tape | None = None):
     """One launch of the fused entry (kmat = K^-1 lower-only) or of the
     in-tape L^-1 entry (kmat = V), with the partition of
     `part_of(P, part_batch)` particles."""
@@ -237,33 +235,35 @@ def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
         raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
     if N % TILE != 0:
         raise ValueError(f"cov_tape_bwd: N={N} is not a multiple of {TILE}")
-    tslot, ttype, tlpos, trpos, tlen = cov.build_tape(node_type, depth_cap)
+    name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
+    if tp is None:
+        tp = cov.tape(node_type, depth_cap)
+    cov.check_tape(name[7:], tp.max_len, tp.max_terms)
     f32 = torch.float32
     args = [("params", params_t, f32, 3), ("ts", ts, f32, 1),
             ("mask", mask, f32, 1), ("kmat", kmat, f32, 3),
             ("beta", beta, f32, 2), ("g", g, f32, 1)]
-    for name, t, dt, nd in args:
-        backend.check_kernel_input(name, t, dt, nd)
+    for arg, t, dt, nd in args:
+        backend.check_kernel_input(arg, t, dt, nd)
     if (params_t.shape != (P, M, 3) or kmat.shape != (P, N, N)
             or beta.shape != (P, N) or g.shape != (P,)
             or mask.shape != (N,)):
         raise ValueError("cov_tape_bwd: shapes do not match [P, M] trees "
                          "on N points")
-    n_acc = 3 * M + 1
     dev = params_t.device
     part = part_of(P, part_batch)
-    partial = torch.empty((P, bwd_chunks(P, N, True, part), n_acc),
+    partial = torch.empty((P, bwd_chunks(P, N, True, part),
+                           3 * tp.max_len + 1),
                           dtype=torch.float64, device=dev)
-    out = torch.empty((P, n_acc), dtype=f32, device=dev)
+    out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
     err = getattr(lib, name)(
-        tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
-        trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
+        tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
+        tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
         ts.data_ptr(), mask.data_ptr(), kmat.data_ptr(),
         beta.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        P, M, N, part, stream)
+        P, M, N, tp.max_len, part, stream)
     _build.check(name, err)
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
 
@@ -283,67 +283,75 @@ def cov_grads_plain(node_type, params_t, kbar, ts, mask, depth_cap: int,
 
 
 def cov_grads_tape(node_type, params_t, kbar, ts, mask, depth_cap: int,
-                   masked: bool = True, *, part_batch: int | None = None):
+                   masked: bool = True, *, part_batch: int | None = None,
+                   tape: cov.Tape | None = None):
     """(pbar [P, M, 3], nbar [P]): the gradient of sum_ij kbar_ij K_ij
     with respect to params_t and the noise, K the assembled gram of
     `cov.cov_tape` / `cov.cov_matrix`, by the tape backward in its unfused
     mode. kbar [P, N, N] is any cotangent (no symmetry assumed); with
     `masked` it is multiplied by mask_i mask_j. Any N. CUDA tensors launch
-    the kernel (float32, or it raises; `part_batch` as in `cov_tape_bwd`),
-    CPU tensors take `cov_grads_plain`."""
+    the kernel (float32, or it raises; `part_batch` and `tape` as in
+    `cov_tape_bwd`), CPU tensors take `cov_grads_plain`."""
     if not backend.on_cuda(params_t):
         return cov_grads_plain(node_type, params_t, kbar, ts, mask,
                                depth_cap, masked)
     return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
-                         masked, tape=True, part_batch=part_batch)
+                         masked, part_batch, tp=tape or
+                         cov.tape(node_type, depth_cap))
 
 
 def cov_grads(node_type, params_t, kbar, ts, mask, depth_cap: int,
-              masked: bool = True, *, part_batch: int | None = None):
+              masked: bool = True, *, part_batch: int | None = None,
+              maxima=None):
     """The contract of `cov_grads_tape`, by the per-slot backward: the
     heaps are compacted into tapes on the device, then the unfused body
-    runs on them (bitwise `cov_grads_tape`)."""
+    runs on them (bitwise `cov_grads_tape`). `maxima`: the batch's
+    `cov.heap_maxima` if the caller has them (None: read here)."""
     if not backend.on_cuda(params_t):
         return cov_grads_plain(node_type, params_t, kbar, ts, mask,
                                depth_cap, masked)
     return _launch_given(node_type, params_t, kbar, ts, mask, depth_cap,
-                         masked, tape=False, part_batch=part_batch)
+                         masked, part_batch, maxima=maxima or
+                         cov.heap_maxima(node_type, depth_cap))
 
 
 def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
-                  tape: bool, part_batch: int | None):
-    """Launch the tape backward's unfused entry or the per-slot backward
-    on a given cotangent."""
+                  part_batch: int | None, tp: cov.Tape | None = None,
+                  maxima=None):
+    """Launch the tape backward's unfused entry on the Tape `tp`, or (no
+    tape) the per-slot backward on the heaps, whose `maxima` are given,
+    with a given cotangent."""
     global unfused_launches, slot_launches
     from autogp_tpu_torch.ops import _build
     P, M = node_type.shape
     N = ts.shape[0]
     if M != (1 << depth_cap) - 1:
         raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
+    max_len, _, max_terms = (tp.max_len, 0, tp.max_terms) if tp else maxima
+    name = "cov_tape_bwd_unfused" if tp else "cov_slot_bwd"
+    cov.check_tape(name, max_len, max_terms)
     f32 = torch.float32
-    for name, t, nd in (("params", params_t, 3), ("ts", ts, 1),
+    for arg, t, nd in (("params", params_t, 3), ("ts", ts, 1),
                         ("mask", mask, 1), ("kbar", kbar, 3)):
-        backend.check_kernel_input(name, t, f32, nd)
+        backend.check_kernel_input(arg, t, f32, nd)
     if (params_t.shape != (P, M, 3) or kbar.shape != (P, N, N)
             or mask.shape != (N,)):
         raise ValueError("cov_grads: shapes do not match [P, M] trees on N "
                          "points")
     part = part_of(P, part_batch)
-    part_shape, tapes_shape = given_scratch(P, M, N, part)
+    part_shape, tapes_shape = given_scratch(P, M, N, part, max_len)
     dev = params_t.device
     partial = torch.empty(part_shape, dtype=torch.float64, device=dev)
     out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if tape:
-        tslot, ttype, tlpos, trpos, tlen = cov.build_tape(node_type,
-                                                          depth_cap)
+    if tp:
         err = lib.autogp_cov_tape_bwd_unfused(
-            tslot.data_ptr(), ttype.data_ptr(), tlpos.data_ptr(),
-            trpos.data_ptr(), tlen.data_ptr(), params_t.data_ptr(),
+            tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
+            tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
             ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked), part,
-            stream)
+            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked),
+            max_len, part, stream)
         _build.check("autogp_cov_tape_bwd_unfused", err)
         unfused_launches += 1
     else:
@@ -353,7 +361,7 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
             nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
             ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
             tapes.data_ptr(), partial.data_ptr(), out.data_ptr(), P, M, N,
-            int(masked), part, stream)
+            int(masked), max_len, part, stream)
         _build.check("autogp_cov_slot_bwd", err)
         slot_launches += 1
     return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
@@ -368,20 +376,31 @@ class CovMatrixDiff(torch.autograd.Function):
                 masked: bool, tape: bool, part_batch):
         ctx.save_for_backward(params_t, node_type, ts, mask)
         ctx.opts = (depth_cap, masked, tape, part_batch)
+        # The forward's tape (or the heaps' maxima) serves the backward.
+        on_card = backend.on_cuda(params_t)
         if not tape:
+            ctx.shape = (cov.heap_maxima(node_type, depth_cap) if on_card
+                         else None)
             return cov.cov_matrix(node_type, params_t, noise, ts, mask,
-                                  depth_cap, masked)
+                                  depth_cap, masked, maxima=ctx.shape)
+        ctx.shape = cov.tape(node_type, depth_cap) if on_card else None
         m = mask if masked else torch.ones_like(mask)
         return cov.cov_tape(node_type, params_t, noise, ts, ts, m, m,
-                            depth_cap, gram=True, lower_only=False)
+                            depth_cap, gram=True, lower_only=False,
+                            tape=ctx.shape)
 
     @staticmethod
     def backward(ctx, kbar):
         params_t, node_type, ts, mask = ctx.saved_tensors
         depth_cap, masked, tape, part_batch = ctx.opts
-        grads = cov_grads_tape if tape else cov_grads
-        pbar, nbar = grads(node_type, params_t, kbar.contiguous(), ts, mask,
-                           depth_cap, masked, part_batch=part_batch)
+        args = (node_type, params_t, kbar.contiguous(), ts, mask, depth_cap,
+                masked)
+        if tape:
+            pbar, nbar = cov_grads_tape(*args, part_batch=part_batch,
+                                        tape=ctx.shape)
+        else:
+            pbar, nbar = cov_grads(*args, part_batch=part_batch,
+                                   maxima=ctx.shape)
         return pbar, nbar, None, None, None, None, None, None, None
 
 
@@ -411,8 +430,12 @@ class LmlTapeFused(torch.autograd.Function):
     def forward(ctx, params_t, noise, node_type, ts, xs, mask,
                 depth_cap: int, part_batch=None):
         P, N = node_type.shape[0], ts.shape[0]
+        # One tape for kernel 1 here and kernel 5 in the backward.
+        ctx.tape = (cov.tape(node_type, depth_cap)
+                    if backend.on_cuda(params_t) else None)
         K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
-                         depth_cap, gram=True, lower_only=True)
+                         depth_cap, gram=True, lower_only=True,
+                         tape=ctx.tape)
         d, alpha, wd, L = chol.chol_solve_strips(K, (xs * mask).expand(P, N))
         ctx.save_for_backward(params_t, alpha, wd, L, node_type, ts, mask)
         ctx.depth_cap = depth_cap
@@ -431,5 +454,5 @@ class LmlTapeFused(torch.autograd.Function):
             bwd = cov_tape_bwd
         pbar, nbar = bwd(node_type, params_t, ts, mask, kmat, beta,
                          g.contiguous(), ctx.depth_cap,
-                         part_batch=ctx.part_batch)
+                         part_batch=ctx.part_batch, tape=ctx.tape)
         return pbar, nbar, None, None, None, None, None, None

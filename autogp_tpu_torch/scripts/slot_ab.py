@@ -62,9 +62,10 @@ def build_tree(d: Path, i: int):
     lib = ctypes.CDLL(str(so))
     lib.part_batch = _build.takes_part_batch(
         (d / "cov_tape_bwd.cu").read_text())
+    lib.maxima = _build.takes_tape_maxima((d / "cov_tape.cu").read_text())
     for name in _build.SIGNATURES:
-        getattr(lib, name).argtypes = _build.entry_argtypes(name,
-                                                            lib.part_batch)
+        getattr(lib, name).argtypes = _build.entry_argtypes(
+            name, lib.part_batch, lib.maxima)
         getattr(lib, name).restype = ctypes.c_int
     if not takes_tapes(d):
         # node_type, order, params, ts, mask, kbar, partial, out, P, M, N,
@@ -106,10 +107,11 @@ class Case:
         self.nt32, self.order = cov.slot_inputs(inp.nt, inp.D)
         self.M = inp.nt.shape[1]
         nt = -(-N // TILE)
-        # Room for either design's partials: at most one row per tile.
+        # Room for every design's partials (at most one row per tile, 3M
+        # + 1 terms a row) and tape scratch (5 P M + P).
         self.partial = torch.empty((P, nt * nt, 3 * self.M + 1),
                                    dtype=torch.float64, device=dev)
-        self.tapes = torch.empty(4 * P * self.M + P, dtype=torch.int32,
+        self.tapes = torch.empty(5 * P * self.M + P, dtype=torch.int32,
                                  device=dev)
 
     def runs(self, lib, tapes: bool):
@@ -119,9 +121,10 @@ class Case:
         stream = torch.cuda.current_stream().cuda_stream
         gram = torch.empty((P, N, N), device=dev)
         grads = torch.empty((P, 3 * M + 1), device=dev)
-        tslot, ttype, tlpos, trpos, tlen = inp.tape
+        tslot, ttype, tlpos, trpos, tlen = inp.tape[:5]
         ts, mask = self.ts.data_ptr(), self.mask.data_ptr()
-        part = (P,) if lib.part_batch else ()
+        mx = inp.maxima(lib)
+        part = mx[:1] + ((P,) if lib.part_batch else ())
 
         def check(name, err):
             if err:
@@ -131,14 +134,14 @@ class Case:
             check("cov_slot", lib.autogp_cov_slot(
                 self.nt32.data_ptr(), self.order.data_ptr(),
                 inp.pt.data_ptr(), inp.noise.data_ptr(), ts, mask,
-                gram.data_ptr(), P, M, N, 1, stream))
+                gram.data_ptr(), P, M, N, 1, *mx, stream))
             return gram
 
         def k1():
             check("cov_tape", lib.autogp_cov_tape(
                 tslot.data_ptr(), ttype.data_ptr(), tlen.data_ptr(),
                 inp.pt.data_ptr(), inp.noise.data_ptr(), ts, ts, mask, mask,
-                gram.data_ptr(), P, M, N, N, 1, 0, stream))
+                gram.data_ptr(), P, M, N, N, 1, 0, *mx, stream))
             return gram
 
         def k7():

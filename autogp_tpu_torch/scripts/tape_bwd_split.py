@@ -4,6 +4,7 @@ kernels 1 and 5 alone at the fit's shapes, for one source tree or two.
 Run on a machine with a card, from the repository root:
 
     python3 -m autogp_tpu_torch.scripts.tape_bwd_split [CSRC ...] [--split]
+        [--recode D]
 
 Each CSRC is a directory holding cov_tape.cu, cov_tape_bwd.cu and
 cov_formulas.cuh (default: the package's csrc/). An older revision is
@@ -20,6 +21,13 @@ on a random cotangent, with nvcc's -Xptxas -v lines for both kernels
 (registers, spills, shared memory). With two trees it also says whether
 their kernel 1 and kernel 5 outputs are bitwise equal, and each tree's 5c
 bitwise its kernel 5.
+
+--recode D times the first tree on the same trees encoded twice, in
+their depth-5 heaps and re-encoded in heaps of depth cap D (the same
+slots, the rest empty: 2^D - 1 slots), in turns (A B B A), and says
+whether kernel 1's grams and kernel 5's gradients (slot for slot) are
+bitwise equal: the kernels are sized by the tape, so the two should cost
+the same.
 
 --split builds copies of each tree's cov_tape_bwd.cu with clock64()
 stamps (one set per block, read by thread (0, 0)) and prints, at
@@ -183,8 +191,10 @@ def build(units: dict, tmp: Path) -> dict:
     res = {}
     for name, (so, log) in out.items():
         lib = ctypes.CDLL(str(so))
-        # Whether its kernel-5 entries take the partition's batch.
+        # Whether its kernel-5 entries take the partition's batch, and
+        # whether its entries take the batch's tape maxima.
         lib.part_batch = _build.takes_part_batch(units[name][0])
+        lib.maxima = _build.takes_tape_maxima(units[name][0])
         res[name] = (lib, ptxas_lines(log.read_text()))
     return res
 
@@ -220,7 +230,7 @@ class Inputs:
     """chip_smoke.py's prior trees and, per (N, active), the grid, the
     tapes, K^-1 and beta."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, depth=None):
         import warnings
 
         from autogp_tpu_torch import config as C
@@ -235,12 +245,31 @@ class Inputs:
         self.nt, pz = M.sample_tree(gen, P, tab, torch.float32, dev)
         noise_z = torch.randn(P, generator=gen, device=dev)
         self.pt = M.transform_params(self.nt, pz, tab)
+        if depth is not None and depth > self.D:
+            # The same trees in a heap of depth cap `depth`: slot s keeps
+            # its index (children at 2s + 1, 2s + 2 at any depth).
+            pad = (1 << depth) - 1 - self.nt.shape[1]
+            self.nt = torch.nn.functional.pad(self.nt, (0, pad))
+            self.pt = torch.nn.functional.pad(self.pt, (0, 0, 0, pad))
+            self.D = depth
         self.noise = M.transform_noise(noise_z, cfg)
         self.xs = torch.as_tensor(np.random.default_rng(0).standard_normal(
             N_MAIN), dtype=torch.float32, device=dev)
         from autogp_tpu_torch.ops import cov
-        self.tape = cov.build_tape(self.nt, self.D)
+        self.tape = cov.tape(self.nt, self.D)
         self.cache = {}
+
+    def maxima(self, lib, height=True):
+        """The tape maxima `lib`'s entries take (none for older trees)."""
+        if not lib.maxima:
+            return ()
+        return ((self.tape.max_len, self.tape.max_height) if height
+                else (self.tape.max_len,))
+
+    def partial_row(self, lib):
+        """Doubles per block of kernel 5's partial for `lib`."""
+        return 3 * (self.tape.max_len if lib.maxima
+                    else self.nt.shape[1]) + 1
 
     def grid(self, N, n_act):
         ts = torch.zeros(N, device=self.dev)
@@ -275,19 +304,18 @@ def bwd_call(lib, inp, N, n_act, linv=False):
     inputs at this shape."""
     name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
     fn = getattr(lib, name)
-    fn.argtypes = _build.entry_argtypes(name, lib.part_batch)
+    fn.argtypes = _build.entry_argtypes(name, lib.part_batch, lib.maxima)
     fn.restype = ctypes.c_int
-    part = (P,) if lib.part_batch else ()
+    part = inp.maxima(lib, False) + ((P,) if lib.part_batch else ())
     ts, mask, Ki, beta, g = inp.bwd(N, n_act)
     if linv:
         Ki, beta = inp.linv(N, n_act)
     M = inp.nt.shape[1]
     nt = N // TILE
-    n_acc = 3 * M + 1
-    partial = torch.empty((P, nt * (nt + 1) // 2, n_acc),
+    partial = torch.empty((P, nt * (nt + 1) // 2, inp.partial_row(lib)),
                           dtype=torch.float64, device=inp.dev)
-    out = torch.empty((P, n_acc), dtype=torch.float32, device=inp.dev)
-    tslot, ttype, tlpos, trpos, tlen = inp.tape
+    out = torch.empty((P, 3 * M + 1), dtype=torch.float32, device=inp.dev)
+    tslot, ttype, tlpos, trpos, tlen = inp.tape[:5]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
@@ -307,19 +335,18 @@ def unfused_call(lib, inp, N):
     active (the online run's 32-point bucket and the chip_smoke shape)."""
     fn = lib.autogp_cov_tape_bwd_unfused
     fn.argtypes = _build.entry_argtypes("autogp_cov_tape_bwd_unfused",
-                                        lib.part_batch)
+                                        lib.part_batch, lib.maxima)
     fn.restype = ctypes.c_int
-    part = (P,) if lib.part_batch else ()
+    part = inp.maxima(lib, False) + ((P,) if lib.part_batch else ())
     ts, mask = inp.grid(N, N * 3 // 4)
     gen = torch.Generator(device=inp.dev).manual_seed(N)
     kbar = torch.randn(P, N, N, generator=gen, device=inp.dev)
     M = inp.nt.shape[1]
     nt = -(-N // TILE)
-    n_acc = 3 * M + 1
-    partial = torch.empty((P, nt * nt, n_acc), dtype=torch.float64,
-                          device=inp.dev)
-    out = torch.empty((P, n_acc), dtype=torch.float32, device=inp.dev)
-    tslot, ttype, tlpos, trpos, tlen = inp.tape
+    partial = torch.empty((P, nt * nt, inp.partial_row(lib)),
+                          dtype=torch.float64, device=inp.dev)
+    out = torch.empty((P, 3 * M + 1), dtype=torch.float32, device=inp.dev)
+    tslot, ttype, tlpos, trpos, tlen = inp.tape[:5]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
@@ -336,26 +363,29 @@ def unfused_call(lib, inp, N):
 
 def cov_call(lib, inp, N):
     fn = lib.autogp_cov_tape
-    fn.argtypes = _build.SIGNATURES["autogp_cov_tape"]
+    fn.argtypes = _build.entry_argtypes("autogp_cov_tape", True, lib.maxima)
     fn.restype = ctypes.c_int
     ts, mask = inp.grid(N, N * 3 // 4)
     M = inp.nt.shape[1]
     out = torch.empty((P, N, N), dtype=torch.float32, device=inp.dev)
-    tslot, ttype, _, _, tlen = inp.tape
+    tslot, ttype, tlen = inp.tape.slot, inp.tape.type, inp.tape.length
+    maxima = inp.maxima(lib)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
         err = fn(tslot.data_ptr(), ttype.data_ptr(), tlen.data_ptr(),
                  inp.pt.data_ptr(), inp.noise.data_ptr(), ts.data_ptr(),
                  ts.data_ptr(), mask.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), P, M, N, N, 1, 1, stream)
+                 out.data_ptr(), P, M, N, N, 1, 1, *maxima, stream)
         if err:
             raise RuntimeError(f"cov_tape: CUDA error {err} at launch")
         return out
     return run
 
 
-def times(trees: dict, inp: Inputs, tmp: Path):
+def times(trees: dict, inps: dict, tmp: Path):
+    """inps: label -> Inputs (one, or with --recode the depth-5 and the
+    depth-D encodings of the same trees, timed on the first tree)."""
     units = {}
     for name, d in trees.items():
         for f in ("cov_tape.cu", "cov_tape_bwd.cu"):
@@ -364,45 +394,61 @@ def times(trees: dict, inp: Inputs, tmp: Path):
     for (name, f), (_, lines) in libs.items():
         for ln in lines:
             print(f"ptxas [{name}] {ln}")
-    names = list(trees)
-    order = names + names[::-1] if len(names) > 1 else names * 2
-    res = {n: {} for n in names}
-    for n in order:
+    if len(inps) > 1:
+        first = next(iter(trees))
+        variants = [(f"{first} at depth cap {lab}", first, inp)
+                    for lab, inp in inps.items()]
+    else:
+        inp = next(iter(inps.values()))
+        variants = [(n, n, inp) for n in trees]
+    order = (variants + variants[::-1] if len(variants) > 1
+             else variants * 2)
+    res = {v[0]: {} for v in variants}
+    for label, n, inp in order:
         cov_lib = libs[(n, "cov_tape.cu")][0]
         bwd_lib = libs[(n, "cov_tape_bwd.cu")][0]
         for N in (256, 512, 1024):
-            res[n].setdefault(("kernel 1", N, N * 3 // 4), []).append(
+            res[label].setdefault(("kernel 1", N, N * 3 // 4), []).append(
                 cuda_ms(cov_call(cov_lib, inp, N), 20))
         for N, a in FIT_SHAPES:
-            res[n].setdefault(("kernel 5", N, a), []).append(
+            res[label].setdefault(("kernel 5", N, a), []).append(
                 cuda_ms(bwd_call(bwd_lib, inp, N, a), 5))
-        res[n].setdefault(("kernel 5c", N_MAIN, N_ACT), []).append(
+        res[label].setdefault(("kernel 5c", N_MAIN, N_ACT), []).append(
             cuda_ms(bwd_call(bwd_lib, inp, N_MAIN, N_ACT, linv=True), 5))
         for N in (32, 1024):
-            res[n].setdefault(("kernel 5b", N, N * 3 // 4), []).append(
+            res[label].setdefault(("kernel 5b", N, N * 3 // 4), []).append(
                 cuda_ms(unfused_call(bwd_lib, inp, N), 20 if N == 32 else 5))
-    # Outputs of the two trees on the same inputs (kernel 1 bitwise).
-    if len(names) > 1:
-        a, b = names[0], names[1]
-        k1 = [cov_call(libs[(n, "cov_tape.cu")][0], inp, N_MAIN)().clone()
-              for n in (a, b)]
-        k5 = [bwd_call(libs[(n, "cov_tape_bwd.cu")][0], inp, N_MAIN,
-                       N_ACT)().clone() for n in (a, b)]
-        k5c = [bwd_call(libs[(n, "cov_tape_bwd.cu")][0], inp, N_MAIN,
-                        N_ACT, linv=True)().clone() for n in (a, b)]
-        rel = ((k5[0].double() - k5[1].double()).abs().amax(1)
-               / k5[1].double().abs().amax(1))
+    # Outputs of the first two variants on the same inputs (kernel 1
+    # bitwise; kernel 5 slot for slot: a deeper heap's extra slots are 0).
+    if len(variants) > 1:
+        (a, na, ia), (b, nb_, ib) = variants[0], variants[1]
+        k1 = [cov_call(libs[(n, "cov_tape.cu")][0], i, N_MAIN)().clone()
+              for n, i in ((na, ia), (nb_, ib))]
+        k5, k5c = [], []
+        for n, i in ((na, ia), (nb_, ib)):
+            lib = libs[(n, "cov_tape_bwd.cu")][0]
+            for lst, lv in ((k5, False), (k5c, True)):
+                o = bwd_call(lib, i, N_MAIN, N_ACT, linv=lv)().clone()
+                M = i.nt.shape[1]
+                lst.append((o[:, :3 * min(ia.nt.shape[1], ib.nt.shape[1])],
+                            o[:, 3 * M], o[:, 3 * min(ia.nt.shape[1],
+                                                      ib.nt.shape[1]):-1]))
+        rel = ((k5[0][0].double() - k5[1][0].double()).abs().amax(1)
+               / k5[1][0].double().abs().amax(1))
         fin = torch.isfinite(rel)
+        same5 = all(torch.equal(x, y) for x, y in zip(k5[0][:2], k5[1][:2]))
+        extra = all(bool((k[2] == 0).all()) for k in k5)
         print(f"kernel 1 at [64, 1024, 1024]: {a} bitwise {b}: "
               f"{torch.equal(k1[0], k1[1])}; kernel 5 at [64, 1024, 1024] "
               f"({N_ACT} active), {a} vs {b}: max per-particle rel "
               f"{float(rel[fin].max()):.3e} on {int(fin.sum())} finite, "
-              f"bitwise: {torch.equal(k5[0], k5[1])}; 5c bitwise kernel 5: "
-              f"{a} {torch.equal(k5c[0], k5[0])}, "
-              f"{b} {torch.equal(k5c[1], k5[1])}")
-    for n in names:
-        for key, v in res[n].items():
-            print(f"[{n}] {key[0]} ms at [64, {key[1]}, {key[1]}] with "
+              f"bitwise slot for slot: {same5} (other slots 0: {extra}); "
+              f"5c bitwise kernel 5: {a} "
+              f"{all(torch.equal(x, y) for x, y in zip(k5c[0], k5[0]))}, "
+              f"{b} {all(torch.equal(x, y) for x, y in zip(k5c[1], k5[1]))}")
+    for label in res:
+        for key, v in res[label].items():
+            print(f"[{label}] {key[0]} ms at [64, {key[1]}, {key[1]}] with "
                   f"{key[2]} active: {', '.join(f'{x:.4f}' for x in v)} "
                   f"(mean {sum(v) / len(v):.4f})")
 
@@ -480,6 +526,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("csrc", nargs="*", default=[str(_build.CSRC_DIR)])
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--recode", type=int, default=None, metavar="D")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tape_bwd_split needs a CUDA card")
@@ -490,12 +537,16 @@ def main(argv=None):
     trees = {}
     for i, d in enumerate(args.csrc):
         trees[f"{chr(65 + i)}:{d}"] = Path(d)
-    inp = Inputs(torch.device("cuda"))
+    dev = torch.device("cuda")
+    inp = Inputs(dev)
+    inps = {inp.D: inp}
+    if args.recode:
+        inps[args.recode] = Inputs(dev, args.recode)
     with tempfile.TemporaryDirectory() as tmp:
         if args.split:
             split(trees, inp, Path(tmp))
         else:
-            times(trees, inp, Path(tmp))
+            times(trees, inps, Path(tmp))
         shutil.rmtree(tmp, ignore_errors=True)
 
 

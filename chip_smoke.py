@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SMC, online-forecasting, greedy-search,
 decomposition, depth-annealing, fixed-structure HMC and particle-mesh
-paths and its tutorial flows once on one NVIDIA GPU.
+paths, its tutorial flows and depth caps above 8 once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -187,6 +187,29 @@ back to the CPU):
      validate_particles, finite live LMLs, the top 8 LMLs and predictions
      within 1e-3 of float64 on the CPU, the quantiles within 1e-3 of the y
      range of a float64 CPU predict_quantile on the carried-over model.
+ 19. deep: depth caps above 8, every launch counter zeroed first --
+     (a) the reference's greedy configuration on tsdl.161
+     (GPConfig(changepoints=False, max_depth=10), seed 2, fit_greedy(
+     max_depth=10)), then fit_greedy_mcmc(n_mcmc=20, n_parallel=4) from
+     seed 7, on 1023-slot heaps: AIC non-increasing in both, AIC = 2 (k -
+     lml) within 1e-6, the final LMLs within 1e-3 of float64 on the CPU;
+     (b) config 4's fit (phase 8's series, schedule and widths) with
+     GPConfig(static_max_depth=10): the prior's LMLs, the fitted top-8
+     LMLs and predictions within 1e-3 of float64 on the CPU, its time
+     beside phase 8's, the scored trees deeper than 8 levels counted;
+     (c) predict_mvn_sum and decompose on a particle whose Periodic split
+     is 9 levels deep against the float64 host construction (1e-3), and
+     decompose on (b)'s model (kernel 1's float64 entry on 1023-slot
+     heaps) with phase 14's gates; kernels 1, 1 f64, 2, 3, 4 and 5 must
+     launch. Then (d), launches not counted: kernels 1, 1 f64, 5, 5b, 5c, 6
+     and 7 at depth caps 9, 10 and 12 on right combs as tall as the cap
+     and prior trees, and on the full 9-level tree, against their plain
+     versions (1, 6: 1e-5 normwise; 1 f64: 1e-12; 5: kernel5_rows; 5b:
+     1e-3 per particle), the twins bitwise (6 = 1, 5c = 5, 7 = 5b), kernels
+     1 and 6 bitwise on every taller stack instance; config 4's prior trees
+     in 31- and 1023-slot heaps: kernels 1, 5, 5b and 7 bitwise, slot for
+     slot; a tape longer than an entry stages raises before launch; each
+     kernel timed on both heaps.
 
 Before the last line it prints the card line and one JSON object with each
 kernel's launches on the main path, its error, its time beside its plain
@@ -196,9 +219,11 @@ of each pipe they run on (FP32 67 TFLOP/s, TF32 tensor cores 495 TFLOP/s,
 special functions), with that pipe named (`pipe`), and its launches in
 config 3's greedy fit (`launches_config3`) and in phase 14's
 predict_mvn_sum (`launches_predict_mvn_sum`), each read from the row's own
-counter, and in phases 15, 16 and 17's rank 0 and phase 18's iclaims fit
-(`launches_depth`, `launches_config2`, `launches_mesh_rank0`,
-`launches_tutorials`); the last line is the device JSON.
+counter, and in phases 15, 16 and 17's rank 0, phase 18's iclaims fit and
+phase 19's path (`launches_depth`, `launches_config2`,
+`launches_mesh_rank0`, `launches_tutorials`, `launches_deep`), and its
+ms on 31- and 1023-slot heaps of the same trees (`ms_cap5_cap10`, phase
+19); the last line is the device JSON.
 """
 
 import json
@@ -269,7 +294,7 @@ def bound(flops, sfu, nbytes, tf32=0.0, f64=0.0):
 def tape_cost(node_type, depth_cap, table):
     """Per-particle (flops, sfu) per element of running its tape once."""
     from autogp_tpu_torch.ops import cov
-    _, ttype, _, _, tlen = cov.build_tape(node_type, depth_cap)
+    _, ttype, _, _, tlen, _ = cov.build_tape(node_type, depth_cap)
     out = []
     for types, n in zip(ttype.tolist(), tlen.tolist()):
         out.append(tuple(sum(table[t][k] for t in types[:n])
@@ -399,7 +424,9 @@ def term_scale(torch, nt, pt, ts, mask, kinv_lower, beta, depth_cap):
     """[P, 3M] float64: for each parameter, the sum over the gram's
     elements of |cotangent x dK / dparameter|, the size of the terms whose
     sum kernel 5 returns, from the plain version in float64 on the same
-    inputs (one forward-mode derivative per parameter slot)."""
+    inputs (one forward-mode derivative, dual numbers, per parameter of a
+    slot active in some tree; 0 at the others, on which K does not
+    depend)."""
     from autogp_tpu_torch import gp_math
     from autogp_tpu_torch.ops import cov
     f64 = torch.float64
@@ -415,10 +442,14 @@ def term_scale(torch, nt, pt, ts, mask, kinv_lower, beta, depth_cap):
         return cov.cov_tape_plain(nt, par, zero, ts64, ts64, m64, m64,
                                   depth_cap, True, False)
     scale = torch.zeros(P, 3 * M, dtype=f64, device=pt.device)
-    for k in range(3 * M):
+    live = (nt != 0).any(0).nonzero()[:, 0].tolist()
+    import torch.autograd.forward_ad as fwAD
+    for k in (3 * s_ + j for s_ in live for j in range(3)):
         tangent = torch.zeros_like(pt64).view(P, -1)
         tangent[:, k] = 1.0
-        _, dK = torch.func.jvp(K, (pt64,), (tangent.view_as(pt64),))
+        with fwAD.dual_level():
+            dK = fwAD.unpack_dual(K(fwAD.make_dual(
+                pt64, tangent.view_as(pt64)))).tangent
         scale[:, k] = (kbar * dK).abs().sum((1, 2))
     return scale
 
@@ -1093,7 +1124,8 @@ def rows_text(rows):
                                            else "") for lab, err, g in rows)
 
 
-def kernel5_rows(torch, label, nt, pt, ts, mask, kinv_lower, beta, depth):
+def kernel5_rows(torch, label, nt, pt, ts, mask, kinv_lower, beta, depth,
+                 terms=True):
     """Kernel 5 against its plain version in float64 on the same inputs
     (the float32 K^-1 and beta upcast), over the particles whose float64
     reference is finite (at least half): each parameter's error within
@@ -1105,7 +1137,10 @@ def kernel5_rows(torch, label, nt, pt, ts, mask, kinv_lower, beta, depth):
     kernel read 0.234 of the largest entry and 8.0e-8 of the terms' size;
     on 15 slots it read up to 0.91 of an entry's terms' size and 1.2e-2
     of the largest entry (NVIDIA H100 80GB HBM3, 700.00 W).
-    Plain version and scale in chunks of 8 particles."""
+    Plain version and scale in chunks of 8 particles. Without `terms` the
+    terms' size is not computed (a derivative per parameter: too slow for
+    hundreds of active slots) and the gate is 1e-3 of the largest entry
+    alone."""
     from autogp_tpu_torch.ops import cov_vjp
     f64 = torch.float64
     P = nt.shape[0]
@@ -1121,7 +1156,8 @@ def kernel5_rows(torch, label, nt, pt, ts, mask, kinv_lower, beta, depth):
         pr.append(p_)
         nr.append(n_)
         scale.append(term_scale(torch, nt[sl], pt[sl], ts, mask,
-                                kinv_lower[sl], beta[sl], depth))
+                                kinv_lower[sl], beta[sl], depth) if terms
+                     else torch.zeros_like(p_.flatten(1)))
     pr, nr, scale = torch.cat(pr), torch.cat(nr), torch.cat(scale)
     ok = torch.isfinite(pr.flatten(1)).all(1) & torch.isfinite(nr)
     err = (pb.double() - pr).abs().flatten(1)
@@ -1253,6 +1289,302 @@ def small_heap_rows(torch, gen, depth):
     del L, wd
     return rows + kernel5_rows(torch, label, nt, pt, ts, mask, Ki, beta,
                                depth)
+
+
+DEEP_LEAVES = (2, 3, 4, 5, 9, 1)   # Linear, SE, GE, Periodic, WN, Constant
+DEEP_OPS = (6, 7, 6, 8)            # Plus, Times, Plus, ChangePoint
+
+
+def comb_heap(np, depth, height):
+    """node_type [M] (M = 2^depth - 1) of a right comb of `height` levels:
+    an operator at each level of the right spine, a leaf on each left,
+    the spine's last slot a leaf. Its post-order stack holds `height`
+    values at once, the most a tree of that many levels needs."""
+    nt = np.zeros((1 << depth) - 1, dtype=np.int64)
+    s = 0
+    for k in range(height - 1):
+        nt[s] = DEEP_OPS[k % len(DEEP_OPS)]
+        nt[2 * s + 1] = DEEP_LEAVES[k % len(DEEP_LEAVES)]
+        s = 2 * s + 2
+    nt[s] = DEEP_LEAVES[(height - 1) % len(DEEP_LEAVES)]
+    return nt
+
+
+def full_heap(np, depth):
+    """node_type [M] of the full tree of `depth` levels (every slot
+    active): Times above the leaves, Plus above those, leaves cycling
+    through DEEP_LEAVES."""
+    M = (1 << depth) - 1
+    nt = np.full(M, 6, dtype=np.int64)
+    bottom = M // 2
+    nt[(bottom - 1) // 2:bottom] = 7
+    nt[bottom:] = [DEEP_LEAVES[i % len(DEEP_LEAVES)]
+                   for i in range(M - bottom)]
+    if depth == 1:
+        nt[0] = DEEP_LEAVES[0]
+    return nt
+
+
+def deep_batch(np, torch, gen, depth, heaps, n_prior):
+    """(node_type [P, M], params_t [P, M, 3] float32, noise [P]) on the
+    card: the given heaps (numpy [M] each) with random parameters, then
+    n_prior trees of the prior at depth cap `depth`."""
+    from autogp_tpu_torch import config as C
+    from autogp_tpu_torch import model as M
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = C.GPConfig(max_depth=depth)
+    tab = M.prior_tables(cfg, "cuda", torch.float32)
+    nts = [torch.as_tensor(np.stack(heaps), device="cuda")] if heaps else []
+    pzs = [0.5 * torch.randn(len(heaps), nts[0].shape[1], 3, generator=gen,
+                             device="cuda")] if heaps else []
+    if n_prior:
+        nt, pz = M.sample_tree(gen, n_prior, tab, torch.float32, "cuda")
+        nts.append(nt)
+        pzs.append(pz)
+    nt, pz = torch.cat(nts), torch.cat(pzs)
+    noise = M.transform_noise(torch.randn(nt.shape[0], generator=gen,
+                                          device="cuda"), cfg)
+    return nt, M.transform_params(nt, pz, tab), noise
+
+
+def raises_without_launch(fn, counter, limit):
+    """Whether fn() raises ValueError naming `limit` with the launch
+    counter (module, attribute) unmoved."""
+    mod, attr = counter
+    before = getattr(mod, attr)
+    try:
+        fn()
+    except ValueError as e:
+        return str(limit) in str(e) and getattr(mod, attr) == before
+    return False
+
+
+def deep_kernel_rows(np, torch, gen, depth, N=256, P=4):
+    """Kernels 1, 1 f64, 5, 5b, 5c, 6 and 7 on heaps of depth cap `depth`
+    (2^depth - 1 slots) at [P, N, N], 3/4 of the points active: a right
+    comb as tall as the cap (the tallest stack), a second comb one level
+    shorter, and P - 2 trees of the prior at that cap. Gates: kernels 1
+    and 6 <= 1e-5 normwise of their plain version; kernel 1's float64 entry
+    <= 1e-12; kernel 5 (kernel5_rows: 1e-3 of each particle's largest
+    entry plus 1e-5 of each parameter's terms' size; noise 1e-3) on its own
+    K^-1 and beta; 5b <= 1e-3 per particle on a random cotangent (noise
+    1e-5); the twins bitwise: 6 = 1 (full gram), 5c = 5, 7 = 5b; kernels 1
+    and 6 bitwise themselves with the stack forced to each taller
+    instance. Returns (label, error, gate) rows; a bitwise gate reads 0
+    when it holds."""
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    f64 = torch.float64
+    heaps = [comb_heap(np, depth, depth), comb_heap(np, depth, depth - 1)]
+    nt, pt, noise = deep_batch(np, torch, gen, depth, heaps, P - 2)
+    n_act = 3 * N // 4
+    ts = torch.zeros(N, device="cuda")
+    ts[:n_act] = torch.linspace(0, 1, n_act, device="cuda")
+    mask = (torch.arange(N, device="cuda") < n_act).float()
+    xs = torch.sin(12 * ts) * mask
+    lab = f"D={depth}"
+    tp = cov.tape(nt, depth)
+    rows = [(f"{lab} tallest stack - cap (must be 0)",
+             float(abs(tp.max_height - depth)), 0)]
+    K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, depth, True)
+    rows.append((f"{lab} kernel 1", normwise_rel(K, cov.cov_tape_plain(
+        nt, pt, noise, ts, ts, mask, mask, depth, True, False)), 1e-5))
+    K6 = cov.cov_matrix(nt, pt, noise, ts, mask, depth)
+    rows.append((f"{lab} kernel 6", normwise_rel(K6, cov.cov_matrix_plain(
+        nt, pt, noise, ts, mask, depth)), 1e-5))
+    rows.append((f"{lab} kernel 6 bitwise kernel 1 (differing entries)",
+                 float((K6 != K).sum()), 0))
+    for h in (8, 12, 16, 32):
+        if h > tp.max_height:
+            K_h = cov._launch(nt, pt, noise, ts, ts, mask, mask, depth, True,
+                              False, min_height=h)
+            K6_h = cov._launch_slot(nt, pt, noise, ts, mask, depth, True,
+                                    min_height=h)
+            rows.append((f"{lab} kernels 1 and 6 with a stack of {h} bitwise "
+                         f"(differing entries)",
+                         float((K_h != K).sum() + (K6_h != K6).sum()), 0))
+    d64 = [x.to(f64) for x in (pt, noise, ts, mask)]
+    K64 = cov.cov_tape(nt, d64[0], d64[1], d64[2], d64[2], d64[3], d64[3],
+                       depth, True)
+    rows.append((f"{lab} kernel 1 f64", normwise_rel(K64, cov.cov_tape_plain(
+        nt, d64[0], d64[1], d64[2], d64[2], d64[3], d64[3], depth, True,
+        False)), 1e-12))
+    # The LML gradient's kernels on the factor of the lower-only gram.
+    Kl = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, depth, True, True)
+    _, a, wd, L = chol.chol_solve_strips(Kl, xs.expand(nt.shape[0], N))
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    V, beta_v, _ = kinv.linv_beta(L, a, wd)
+    rows += kernel5_rows(torch, lab, nt, pt, ts, mask, Ki, beta, depth)
+    g1 = torch.ones(nt.shape[0], device="cuda")
+    p5, n5 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g1, depth)
+    p5c, n5c = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V, beta, g1,
+                                         depth)
+    rows.append((f"{lab} kernel 5c bitwise 5 (differing entries)",
+                 float((p5c != p5).sum() + (n5c != n5).sum()), 0))
+    kbar = torch.randn(nt.shape[0], N, N, generator=gen, device="cuda")
+    pb, nb = cov_vjp.cov_grads_tape(nt, pt, kbar, ts, mask, depth)
+    p7, n7 = cov_vjp.cov_grads(nt, pt, kbar, ts, mask, depth)
+    pr, nr = cov_vjp.cov_grads_plain(nt, pt.to(f64), kbar.to(f64),
+                                     ts.to(f64), mask.to(f64), depth)
+    ok = torch.isfinite(pr.flatten(1)).all(1)
+    e = ((pb.double() - pr).abs().flatten(1).amax(1)
+         / pr.abs().flatten(1).amax(1).clamp_min(1e-30))[ok]
+    rows += [(f"{lab} kernel 5b particles without a finite f64 reference",
+              float((~ok).sum()), nt.shape[0] // 2),
+             (f"{lab} kernel 5b", float(e.max()), 1e-3),
+             (f"{lab} kernel 5b nbar", float(((nb.double() - nr).abs()
+                                              / nr.abs())[ok].max()), 1e-5),
+             (f"{lab} kernel 7 bitwise 5b (differing entries)",
+              float((p7 != pb).sum() + (n7 != nb).sum()), 0)]
+    return rows
+
+
+def full_tree_rows(np, torch, gen, depth=9, N=64):
+    """The full tree of `depth` levels (2^depth - 1 active slots: the
+    longest tape of its heap) and one prior tree, at [2, N, N]: kernels 1,
+    6, 1 f64, 5, 5c, 5b and 7 with deep_kernel_rows' gates."""
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    f64 = torch.float64
+    nt, pt, noise = deep_batch(np, torch, gen, depth, [full_heap(np, depth)],
+                               1)
+    n_act = 3 * N // 4
+    ts = torch.zeros(N, device="cuda")
+    ts[:n_act] = torch.linspace(0, 1, n_act, device="cuda")
+    mask = (torch.arange(N, device="cuda") < n_act).float()
+    xs = torch.sin(12 * ts) * mask
+    lab = f"full depth-{depth} tree"
+    K = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, depth, True)
+    K6 = cov.cov_matrix(nt, pt, noise, ts, mask, depth)
+    d64 = [x.to(f64) for x in (pt, noise, ts, mask)]
+    K64 = cov.cov_tape(nt, d64[0], d64[1], d64[2], d64[2], d64[3], d64[3],
+                       depth, True)
+    rows = [(f"{lab} tape length", float(cov.tape(nt, depth).max_len),
+             float((1 << depth) - 1)),
+            (f"{lab} kernel 1", normwise_rel(K, cov.cov_tape_plain(
+                nt, pt, noise, ts, ts, mask, mask, depth, True, False)),
+             1e-5),
+            (f"{lab} kernel 6 bitwise kernel 1 (differing entries)",
+             float((K6 != K).sum()), 0),
+            (f"{lab} kernel 1 f64", normwise_rel(K64, cov.cov_tape_plain(
+                nt, d64[0], d64[1], d64[2], d64[2], d64[3], d64[3], depth,
+                True, False)), 1e-12)]
+    Kl = cov.cov_tape(nt, pt, noise, ts, ts, mask, mask, depth, True, True)
+    _, a, wd, L = chol.chol_solve_strips(Kl, xs.expand(2, N))
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    V, _, _ = kinv.linv_beta(L, a, wd)
+    rows += kernel5_rows(torch, lab, nt, pt, ts, mask, Ki, beta, depth,
+                         terms=False)
+    g1 = torch.ones(2, device="cuda")
+    p5, n5 = cov_vjp.cov_tape_bwd(nt, pt, ts, mask, Ki, beta, g1, depth)
+    p5c, n5c = cov_vjp.cov_tape_bwd_linv(nt, pt, ts, mask, V, beta, g1,
+                                         depth)
+    kbar = torch.randn(2, N, N, generator=gen, device="cuda")
+    pb, nb = cov_vjp.cov_grads_tape(nt, pt, kbar, ts, mask, depth)
+    p7, n7 = cov_vjp.cov_grads(nt, pt, kbar, ts, mask, depth)
+    pr, _ = cov_vjp.cov_grads_plain(nt, pt.to(f64), kbar.to(f64),
+                                    ts.to(f64), mask.to(f64), depth)
+    return rows + [
+        (f"{lab} kernel 5c bitwise 5 (differing entries)",
+         float((p5c != p5).sum() + (n5c != n5).sum()), 0),
+        (f"{lab} kernel 5b", normwise_rel(pb.flatten(1), pr.flatten(1)),
+         1e-3),
+        (f"{lab} kernel 7 bitwise 5b (differing entries)",
+         float((p7 != pb).sum() + (n7 != nb).sum()), 0)]
+
+
+def recode_rows(np, torch, gen, depth=10):
+    """64 prior trees of depth cap 5 (ChangePoints on) and the same trees
+    re-encoded in heaps of depth cap `depth` (the same slots, the rest
+    empty), at [64, 1024, 1024] with 768 points active: kernel 1's lower
+    gram and kernel 5's gradient (slot for slot, on the same K^-1 and
+    beta; the deeper heap's other slots 0) bitwise equal, so are 5b's and
+    7's on a random cotangent. Returns (label, differing entries, 0)
+    rows."""
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    nt5, pt5, noise = deep_batch(np, torch, gen, 5, [], P_MAIN)
+    pad = (1 << depth) - 1 - nt5.shape[1]
+    nt10 = torch.nn.functional.pad(nt5, (0, pad))
+    pt10 = torch.nn.functional.pad(pt5, (0, 0, 0, pad))
+    n_act = 3 * N_MAIN // 4
+    ts = torch.zeros(N_MAIN, device="cuda")
+    ts[:n_act] = torch.linspace(0, 1, n_act, device="cuda")
+    mask = (torch.arange(N_MAIN, device="cuda") < n_act).float()
+    xs = torch.sin(12 * ts) * mask
+    K5 = cov.cov_tape(nt5, pt5, noise, ts, ts, mask, mask, 5, True, True)
+    K10 = cov.cov_tape(nt10, pt10, noise, ts, ts, mask, mask, depth, True,
+                       True)
+    _, a, wd, L = chol.chol_solve_strips(K5, xs.expand(P_MAIN, -1))
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    del L, wd, a
+    g1 = torch.ones(P_MAIN, device="cuda")
+
+    def diff(o5, o10):
+        (p5, n5), (p10, n10) = o5, o10
+        return float((p10[:, :p5.shape[1]] != p5).sum() + (n10 != n5).sum()
+                     + (p10[:, p5.shape[1]:] != 0).sum())
+    rows = [(f"kernel 1 at depth caps 5 and {depth} (differing entries)",
+             float((K10 != K5).sum()), 0)]
+    del K10
+    rows.append((f"kernel 5 at depth caps 5 and {depth} (differing entries)",
+                 diff(cov_vjp.cov_tape_bwd(nt5, pt5, ts, mask, Ki, beta, g1,
+                                           5),
+                      cov_vjp.cov_tape_bwd(nt10, pt10, ts, mask, Ki, beta,
+                                           g1, depth)), 0))
+    kbar = torch.randn(P_MAIN, N_MAIN, N_MAIN, generator=gen, device="cuda")
+    for name, fn in (("5b", cov_vjp.cov_grads_tape),
+                     ("7", cov_vjp.cov_grads)):
+        rows.append((f"kernel {name} at depth caps 5 and {depth} "
+                     f"(differing entries)",
+                     diff(fn(nt5, pt5, kbar, ts, mask, 5),
+                          fn(nt10, pt10, kbar, ts, mask, depth)), 0))
+    return rows
+
+
+def overlong_rows(np, torch):
+    """A tape longer than an entry stages raises before launch, naming the
+    limit, with the entry's launch counter unmoved: the full trees of 11
+    levels (2047 positions: kernels 5, 5b, 5c, 7) and 14 levels (16383:
+    kernels 1, 1 f64, 6). Returns (label, 0 if it held else 1, 0) rows."""
+    from autogp_tpu_torch.ops import cov, cov_vjp
+    rows = []
+    for depth, names in ((11, ("cov_tape_bwd", "cov_tape_bwd_linv",
+                               "cov_tape_bwd_unfused", "cov_slot_bwd")),
+                         (14, ("cov_tape", "cov_tape_f64", "cov_slot"))):
+        nt = torch.as_tensor(full_heap(np, depth), device="cuda")[None]
+        M = nt.shape[1]
+        pt = torch.full((1, M, 3), 0.5, device="cuda")
+        nz = torch.full((1,), 0.1, device="cuda")
+        N = 64
+        ts = torch.linspace(0, 1, N, device="cuda")
+        m = torch.ones(N, device="cuda")
+        Z = torch.zeros(1, N, N, device="cuda")
+        b, g = torch.zeros(1, N, device="cuda"), torch.ones(1, device="cuda")
+        calls = {
+            "cov_tape": (lambda: cov.cov_tape(nt, pt, nz, ts, ts, m, m,
+                                              depth, True),
+                         (cov, "launches")),
+            "cov_tape_f64": (lambda: cov.cov_tape(
+                nt, pt.double(), nz.double(), ts.double(), ts.double(),
+                m.double(), m.double(), depth, True), (cov, "f64_launches")),
+            "cov_slot": (lambda: cov.cov_matrix(nt, pt, nz, ts, m, depth),
+                         (cov, "slot_launches")),
+            "cov_tape_bwd": (lambda: cov_vjp.cov_tape_bwd(
+                nt, pt, ts, m, Z, b, g, depth), (cov_vjp, "launches")),
+            "cov_tape_bwd_linv": (lambda: cov_vjp.cov_tape_bwd_linv(
+                nt, pt, ts, m, Z, b, g, depth), (cov_vjp, "linv_launches")),
+            "cov_tape_bwd_unfused": (lambda: cov_vjp.cov_grads_tape(
+                nt, pt, Z, ts, m, depth), (cov_vjp, "unfused_launches")),
+            "cov_slot_bwd": (lambda: cov_vjp.cov_grads(nt, pt, Z, ts, m,
+                                                       depth),
+                             (cov_vjp, "slot_launches"))}
+        for name in names:
+            fn, counter = calls[name]
+            held = raises_without_launch(fn, counter, cov.TAPE_LIMITS[name])
+            rows.append((f"{name}: a tape of {M} positions raises, naming "
+                         f"{cov.TAPE_LIMITS[name]}, and launches nothing "
+                         f"(0 if so)", 0.0 if held else 1.0, 0))
+    return rows
 
 
 def config2_phase(A, np, torch):
@@ -1653,6 +1985,387 @@ def tutorials_phase(A, np, torch):
           f"quantiles vs f64 CPU {q_err:.3e} of the y range ({ref_s:.1f} "
           f"s); validate_particles ok")
     return launches
+
+
+class TreeRecorder:
+    """Wraps ops.cov.tape (kernel 1's and kernel 5's tapes) while on: the
+    tallest stack and longest tape of each batch, and the trees scored
+    (each particle of each batch) and those deeper than 8 levels, counted
+    on the device."""
+
+    def __init__(self, torch):
+        from autogp_tpu_torch import gp_math
+        from autogp_tpu_torch.ops import cov
+        self.torch, self.cov, self.gp_math = torch, cov, gp_math
+        self.orig = cov.tape
+        self.max_height = self.max_len = 0
+        self.trees = 0
+        self.deep = None
+        self.depths = {}   # depth cap -> each slot's level (1-based)
+
+    def __enter__(self):
+        torch, cov = self.torch, self.cov
+
+        def recording(node_type, depth_cap):
+            tp = self.orig(node_type, depth_cap)
+            self.max_height = max(self.max_height, tp.max_height)
+            self.max_len = max(self.max_len, tp.max_len)
+            if depth_cap not in self.depths:
+                self.depths[depth_cap] = torch.as_tensor(
+                    self.gp_math.slot_depths(depth_cap),
+                    device=node_type.device)
+            d = torch.where(node_type > 0, self.depths[depth_cap][None],
+                            0).amax(1)
+            n = (d > 8).sum()
+            self.deep = n if self.deep is None else self.deep + n
+            self.trees += node_type.shape[0]
+            return tp
+        cov.tape = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cov.tape = self.orig
+
+    def deeper_than_8(self):
+        return 0 if self.deep is None else int(self.deep)
+
+
+def vs_cpu_refs(A, np, torch, model, idx, ds_pred=None, df=None,
+                y_range=None, tol=1e-3):
+    """The card's LMLs of particles `idx` (and, given `df` = A.predict(model,
+    ds_pred, quantiles=[.1, .5, .9]), their predictions over `y_range`)
+    against the same particles carried to the CPU (to_dict / from_dict) in
+    float64; where one misses by more than `tol`, also what float32
+    arithmetic itself gets there: the same carried-over model in float32
+    on the CPU (the plain path) against float64. Returns per particle
+    (card LML rel err, float32 LML rel err, card predict err / y-range,
+    float32 predict err / y-range); the float32 columns are NaN where not
+    computed, the predict columns 0 without `df`."""
+    d = A.to_dict(model)
+    for key in ("kernels", "noise_zs", "noises"):
+        d[key] = [d[key][i] for i in idx]
+    d["pf_state"]["log_weights"] = [d["pf_state"]["log_weights"][i]
+                                    for i in idx]
+    cols = ["y_mean", "y_0.1", "y_0.5", "y_0.9"]
+
+    def ref(dt):
+        r = A.from_dict(d, device="cpu", dtype=dt)
+        pred = None if df is None else A.predict(
+            r, ds_pred, quantiles=[.1, .5, .9])[cols].to_numpy().reshape(
+                len(idx), len(ds_pred), len(cols))
+        return r.particles.lml.double().numpy(), pred
+    l64, p64 = ref(torch.float64)
+    card = model.particles.lml[torch.as_tensor(
+        idx, device=model.device)].double().cpu().numpy()
+    out = np.full((len(idx), 4), np.nan)
+    out[:, 0] = np.abs(card - l64) / np.abs(l64)
+    out[:, 2] = 0.0
+    if df is not None:
+        got = df[cols].to_numpy().reshape(
+            model.num_particles, len(ds_pred), len(cols))[idx]
+        out[:, 2] = np.abs(got - p64).max((1, 2)) / y_range
+    if (out[:, [0, 2]] > tol).any():
+        l32, p32 = ref(torch.float32)
+        out[:, 1] = np.abs(l32 - l64) / np.abs(l64)
+        out[:, 3] = (0.0 if df is None
+                     else np.abs(p32 - p64).max((1, 2)) / y_range)
+    return out
+
+
+def float32_gate(np, errs, tol=1e-3):
+    """Per particle, the card's error against float64 may be at most `tol`
+    or, where float32 arithmetic on the CPU misses float64 by more than
+    tol/2 on the same model, twice that miss: the card is held to float64
+    as far as float32 can be, and to float32's own error beyond. `errs`:
+    (card err, float32 err) columns, float32's NaN where not computed.
+    Returns (ok, a summary)."""
+    card, f32 = errs[:, 0], np.nan_to_num(errs[:, 1])
+    bound = np.maximum(tol, 2.0 * f32)
+    beyond = int((f32 > tol / 2).sum())
+    seen = ("" if np.isnan(errs[:, 1]).all() else
+            f"; float32 on the CPU {float(f32.max()):.3e}")
+    return bool((card <= bound).all()), (
+        f"{float(card.max()):.3e} (gate {tol:g}{seen}" + (
+            f", the gate twice float32's error on the {beyond} particle(s) "
+            f"where float32 misses float64 by more than {tol / 2:g}"
+            if beyond else "") + ")")
+
+
+def deep_greedy(A, np, torch):
+    """Phase 19 (a): the reference's greedy configuration on tsdl.161 --
+    GPConfig(changepoints=False, max_depth=10), seed 2, fit_greedy(
+    max_depth=10) -- then the flow's full-budget hybrid from seed 7,
+    fit_greedy_mcmc(n_mcmc=20, n_parallel=4). Gates: AIC non-increasing in
+    both, AIC = 2 (k - lml) within 1e-6, the final LMLs within 1e-3 of
+    float64 on the CPU (float32_gate: or within twice float32's own miss on
+    the CPU, where that is above 5e-4). Returns a summary."""
+    from autogp_tpu_torch.inference import greedy as G
+    from autogp_tpu_torch.scripts.tutorials._common import load_tsdl161
+    df = load_tsdl161()
+    ds, y = df["ds"], df["y"].to_numpy()
+    cfg = A.GPConfig(changepoints=False, max_depth=10)
+    msgs = []
+    for part in ("fit_greedy(max_depth=10)",
+                 "fit_greedy_mcmc(n_mcmc=20, n_parallel=4)"):
+        steps = []
+        rec = TreeRecorder(torch)
+        t0 = time.perf_counter()
+        with rec:
+            if part.startswith("fit_greedy("):
+                A.seed(2)
+                m = A.GPModel(ds, y, n_particles=1, config=cfg)
+
+                def cb(*, model, step, aic, elapsed, **kw):
+                    steps.append((step, aic, str(model.covariance_kernels(
+                        reparameterize=False)[0])))
+                A.fit_greedy(m, max_depth=10, callback_fn=cb)
+            else:
+                A.seed(7)
+                m = A.GPModel(ds, y, n_particles=1, config=cfg)
+                A.fit_greedy_mcmc(
+                    m, n_mcmc=20, n_parallel=4,
+                    callback_fn=lambda *, step, aic, accepted, **kw:
+                    steps.append((step, aic, accepted)))
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        aics = [a for _, a, _ in steps]
+        if not steps or not all(b <= a for a, b in zip(aics, aics[1:])):
+            fail(f"deep (a): {part}: AICs not non-increasing: {aics}")
+        lml = float(m.particles.lml[0])
+        k = int(G.n_params(m.particles.node_type[0], cfg.noise is None))
+        aic_err = abs(aics[-1] - 2.0 * (k - lml)) / abs(aics[-1])
+        ok, lml_msg = float32_gate(
+            np, vs_cpu_refs(A, np, torch, m, [0])[:, :2])
+        if not (aic_err <= 1e-6 and ok):
+            fail(f"deep (a): {part}: AIC {aics[-1]} vs 2 (k - lml) = "
+                 f"{2.0 * (k - lml)} (rel {aic_err:.1e}), final LML vs "
+                 f"float64 CPU rel {lml_msg}")
+        if part.startswith("fit_greedy("):
+            detail = "per stage (step, AIC, structure, candidates, probes) " \
+                + ", ".join(f"({s_}, {a:.4f}, {st}, {r['candidates']}, "
+                            f"{r['probes']})"
+                            for (s_, a, st), r in zip(steps, m.round_stats))
+        else:
+            detail = "AICs " + ", ".join(
+                f"{a:.4f}{'*' if acc else ''}" for _, a, acc in steps) \
+                + " (* accepted)"
+        msgs.append(f"{part} {sec:.1f} s: {detail}; final LML {lml:.4f} "
+                    f"(vs float64 CPU rel {lml_msg}), AIC = 2 (k - lml) "
+                    f"with k = {k} (rel {aic_err:.1e}); tallest stack "
+                    f"{rec.max_height}, longest tape {rec.max_len}, "
+                    f"{rec.trees} trees scored, {rec.deeper_than_8()} "
+                    f"deeper than 8 levels")
+    return "(a) " + "; ".join(msgs)
+
+
+def deep_config4(A, np, torch, t_days, y, ds_future, sched, e2e_ms):
+    """Phase 19 (b): config 4's fit (phase 8's series, schedule and
+    widths, seed 1) with GPConfig(static_max_depth=10): the prior's LMLs
+    (8 particles) against float64 on the CPU, fit_smc(n_mcmc=10,
+    n_hmc=10) timed (CUDA events), predict at 32 points, the 8 heaviest
+    particles' LMLs and predictions (over the y range) within 1e-3 of
+    float64 on the CPU (float32_gate per particle), validate_particles.
+    Returns (model, summary)."""
+    from autogp_tpu_torch.inference import smc
+    cfg = A.GPConfig(static_max_depth=10)
+    A.seed(1)
+    with TreeRecorder(torch) as rec:
+        m = A.GPModel(t_days, y, n_particles=P_MAIN, config=cfg)
+        alive = (m.particles.lml > smc.BAD_LML).nonzero()[:, 0].tolist()
+        prior = vs_cpu_refs(A, np, torch, m, alive[:8])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        A.fit_smc(m, schedule=sched, n_mcmc=10, n_hmc=10)
+        ev[1].record()
+        df = A.predict(m, ds_future, quantiles=[.1, .5, .9])
+        ev[2].record()
+        torch.cuda.synchronize()
+    fit_ms, pred_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    smc.validate_particles(m.particles, m.config, tables=m.tables)
+    w = m.particle_weights()
+    alive = (m.particles.lml > smc.BAD_LML).cpu().numpy()
+    top = [int(i) for i in np.argsort(-w) if alive[i]][:8]
+    fitted = vs_cpu_refs(A, np, torch, m, top, ds_future, df,
+                         y.max() - y.min())
+    gates = [float32_gate(np, e) for e in (prior[:, :2], fitted[:, :2],
+                                       fitted[:, 2:])]
+    msg_p, msg_l, msg_x = (g[1] for g in gates)
+    if not all(g[0] for g in gates):
+        fail(f"deep (b): float32 card vs float64 CPU: prior LMLs rel "
+             f"{msg_p}, fitted top-8 LMLs rel {msg_l}, predict err / "
+             f"y-range {msg_x}")
+    depth = A.GPConfig().depth_cap
+    return m, (
+        f"(b) config 4 with static_max_depth=10 (1023-slot heaps): prior "
+        f"LMLs of 8 particles vs float64 CPU rel {msg_p}; fit_smc "
+        f"{fit_ms:.1f} ms (phase 8 at depth cap {depth}: {e2e_ms:.1f} ms), "
+        f"predict(32) {pred_ms:.1f} ms; top-8 vs float64 CPU: LML rel "
+        f"{msg_l}, predict err / y-range {msg_x}; "
+        f"{rec.trees} trees scored through kernel 1's tapes, "
+        f"{rec.deeper_than_8()} deeper than 8 levels, tallest stack "
+        f"{rec.max_height}, longest tape {rec.max_len}; best LML "
+        f"{float(m.particles.lml.max()):.3f}; validate_particles ok")
+
+
+def deep_components(A, np, torch, model_b):
+    """Phase 19 (c): the 9-level particle of tests/test_torch_decompose.py
+    (test_predict_mvn_sum_deep_components) on the card -- predict_mvn_sum
+    by GP.Periodic against the float64 host construction of its blocks
+    (mean and covariance within 1e-3 normwise), its decompose's fragment
+    LMLs against float64 on the CPU -- and decompose on phase (b)'s model
+    (its 4 heaviest particles' fragments, kernel 1's float64 entry on
+    1023-slot heaps). Returns a summary."""
+    from autogp_tpu_torch import gp_math
+    GP = A.GP
+    inner = GP.ChangePoint(GP.Periodic(0.3, 0.2, 1.0),
+                           GP.Linear(0.1, 0.2, 0.3), 0.4, 1e-3)
+    k = inner
+    for i in range(3):
+        k = (k + GP.SquaredExponential(0.2 + 0.1 * i, 0.8)) * (
+            GP.Periodic(0.4, 0.3 + 0.1 * i, 0.9) + GP.Linear(0.2, 0.3, 0.4))
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = A.GPConfig(static_max_depth=k.depth)
+    ds = np.linspace(0, 3, 20)
+    m = A.GPModel(ds, np.cos(2 * ds), n_particles=1, config=cfg)
+    m = A.gp_model_from_kernels(m, [k])
+    comps = A.api.sum_components(m, GP.Periodic)[0]
+    ds_pred = np.linspace(3, 3.5, 4)
+    mix, idx = A.predict_mvn_sum(m, ds_pred, GP.Periodic)
+    ts, xs, tsp = m._ds_numeric(), m._y_numeric(), m._ds_numeric(ds_pred)
+    nodes = GP.split_kernel_sop(k, GP.Periodic)
+    blocks = [torch.as_tensor(np.stack([f(kk) for kk in nodes]))[None]
+              for f in (lambda kk: GP.eval_cov(kk, ts),
+                        lambda kk: GP.eval_cov(kk, ts, tsp),
+                        lambda kk: GP.eval_cov(kk, tsp))]
+    noise = m.observation_noise_variances(reparameterize=False)
+    mu, cv = gp_math.infer_gp_sum_from_blocks(
+        *blocks, torch.tensor(noise, dtype=torch.float64),
+        torch.as_tensor(xs), torch.ones(len(ts), dtype=torch.float64))
+    mu, cv = m.y_transform.unapply_mean_var(mu[0].numpy(), cv[0].numpy())
+    mu[idx["F"][0]] += m.y_transform.intercept / m.y_transform.slope
+    e_mu = float(np.abs(mix.components[0].mean - mu).max()
+                 / np.abs(mu).max())
+    e_cv = float(np.abs(mix.components[0].cov - cv).max()
+                 / np.abs(cv).max())
+    if not (e_mu <= 1e-3 and e_cv <= 1e-3):
+        fail(f"deep (c): predict_mvn_sum on the 9-level particle vs the "
+             f"float64 host construction: mean {e_mu:.3e}, cov {e_cv:.3e} "
+             f"(gates 1e-3)")
+    _, frag9, _ = fragment_lml_check(A, np, torch, m)
+    _, frag_b, f64_launches = fragment_lml_check(A, np, torch, model_b,
+                                                 top=4)
+    return (f"(c) the 9-level particle (components up to depth "
+            f"{max(c.depth for c in comps)}): predict_mvn_sum vs float64 host "
+            f"blocks: mean {e_mu:.3e}, cov {e_cv:.3e} (gates 1e-3); its "
+            f"decompose: {frag9}; decompose of (b)'s model: {frag_b}, "
+            f"kernel 1 float64 launches {f64_launches}")
+
+
+def recode_times(np, torch, gen):
+    """Kernels 1, 6, 5, 5c, 5b and 7 at [64, 1024, 1024], 768 points
+    active, on 64 prior trees of depth cap 5 and on the same trees
+    re-encoded at depth cap 10: the wrapper's ms (CUDA events; at cap 10 it
+    reads the batch's tape maxima back) at both caps in turns (5, 10, 10,
+    5), and the kernels' device ms (device_ms) once at each; kernel 1's
+    float64 entry at [8, 1024, 1024]. Returns {kernel-line name: (wrapper
+    ms at cap 5, at cap 10, device ms at cap 5, at cap 10)}."""
+    from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+    nt5, pt5, noise = deep_batch(np, torch, gen, 5, [], P_MAIN)
+    pad = 1023 - 31
+    nt10 = torch.nn.functional.pad(nt5, (0, pad))
+    pt10 = torch.nn.functional.pad(pt5, (0, 0, 0, pad))
+    n_act = 3 * N_MAIN // 4
+    ts = torch.zeros(N_MAIN, device="cuda")
+    ts[:n_act] = torch.linspace(0, 1, n_act, device="cuda")
+    mask = (torch.arange(N_MAIN, device="cuda") < n_act).float()
+    xs = torch.sin(12 * ts) * mask
+    K = cov.cov_tape(nt5, pt5, noise, ts, ts, mask, mask, 5, True, True)
+    _, a, wd, L = chol.chol_solve_strips(K, xs.expand(P_MAIN, -1))
+    Ki, beta, _ = kinv.kinv_beta_strips(a, wd, L)
+    V, _, _ = kinv.linv_beta(L, a, wd)
+    del K, L, wd, a
+    g1 = torch.ones(P_MAIN, device="cuda")
+    kbar = torch.randn(P_MAIN, N_MAIN, N_MAIN, generator=gen, device="cuda")
+    d64 = [x.double() for x in (pt5[:8], pt10[:8], noise[:8], ts, mask)]
+    calls = {
+        "cov_tape": lambda nt, pt, D: cov.cov_tape(
+            nt, pt, noise, ts, ts, mask, mask, D, True, True),
+        "cov_slot": lambda nt, pt, D: cov.cov_matrix(nt, pt, noise, ts,
+                                                     mask, D),
+        "cov_tape_bwd": lambda nt, pt, D: cov_vjp.cov_tape_bwd(
+            nt, pt, ts, mask, Ki, beta, g1, D),
+        "cov_tape_bwd_linv": lambda nt, pt, D: cov_vjp.cov_tape_bwd_linv(
+            nt, pt, ts, mask, V, beta, g1, D),
+        "cov_tape_bwd_unfused": lambda nt, pt, D: cov_vjp.cov_grads_tape(
+            nt, pt, kbar, ts, mask, D),
+        "cov_slot_bwd": lambda nt, pt, D: cov_vjp.cov_grads(
+            nt, pt, kbar, ts, mask, D),
+        "cov_tape_f64": lambda nt, pt, D: cov.cov_tape(
+            nt[:8], d64[0] if D == 5 else d64[1], d64[2], d64[3], d64[3],
+            d64[4], d64[4], D, True, True)}
+    kernels = {"cov_tape": ("cov_tape_kernel",),
+               "cov_slot": ("cov_slot_kernel",),
+               "cov_tape_f64": ("cov_tape_f64_kernel",),
+               "cov_slot_bwd": ("heap_tape_kernel", "cov_tape_bwd_kernel",
+                                "reduce_tiles_kernel")}
+    out = {}
+    for name, fn in calls.items():
+        t = {5: [], 10: []}
+        for D in (5, 10, 10, 5):
+            nt, pt = (nt5, pt5) if D == 5 else (nt10, pt10)
+            t[D].append(cuda_ms(torch, lambda: fn(nt, pt, D), 5))
+        dev = [device_ms(torch, lambda: fn(nt, pt, D), kernels.get(
+            name, ("cov_tape_bwd_kernel", "reduce_tiles_kernel")), 3)
+            for nt, pt, D in ((nt5, pt5, 5), (nt10, pt10, 10))]
+        out[name] = (sum(t[5]) / 2, sum(t[10]) / 2, *dev)
+    return out
+
+
+def deep_phase(A, np, torch, t_days, y, ds_future, sched, e2e_ms):
+    """Phase 19: depth caps the JAX package takes and kernel 1 once did
+    not, on the card. Every launch counter zeroed, then (a) deep_greedy,
+    (b) deep_config4, (c) deep_components, the counters read: kernels 1,
+    1 f64, 2, 3, 4 and 5 must launch. Then (d), kernel gates that do not
+    count: deep_kernel_rows at depth caps 9, 10 and 12, full_tree_rows,
+    recode_rows, overlong_rows, and recode_times. Returns (the path's
+    launches by kernels-line row, recode_times)."""
+    t0 = time.perf_counter()
+    counters = row_counters()
+    zero_counts(counters)
+    msg_a = deep_greedy(A, np, torch)
+    model_b, msg_b = deep_config4(A, np, torch, t_days, y, ds_future,
+                                  sched, e2e_ms)
+    msg_c = deep_components(A, np, torch, model_b)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    need = ("cov_tape", "cov_tape_f64", "chol_panel", "linv_stats_wd",
+            "kinv_beta_strips", "cov_tape_bwd")
+    if min(launches[k] for k in need) <= 0:
+        fail(f"deep: a kernel of the path never launched: {launches}")
+    path_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for depth in (9, 10, 12):
+        rows += deep_kernel_rows(np, torch, gen, depth)
+    rows += full_tree_rows(np, torch, gen)
+    rows += recode_rows(np, torch, gen)
+    rows += overlong_rows(np, torch)
+    bad = gate_failures(rows)
+    if bad:
+        fail(f"deep (d): {rows_text(bad)}")
+    times = recode_times(np, torch, gen)
+    phase("deep", f"{msg_a}; {msg_b}; {msg_c}; path {path_s:.1f} s, "
+          f"launches {launches}; (d) {len(rows)} kernel gates held at depth "
+          f"caps 9, 10, 12 and on the full depth-9 tree: "
+          f"{rows_text(rows)}; ms at depth caps 5 / 10 on the same trees "
+          f"([64, 1024, 1024], 768 active; 1 f64 at [8, 1024, 1024]), "
+          f"wrapper (device): " + ", ".join(
+              f"{k} {a:.4f} / {b:.4f} ({c:.4f} / {d:.4f})"
+              for k, (a, b, c, d) in times.items()))
+    return launches, times
 
 
 def main():
@@ -2875,6 +3588,10 @@ def main():
     # ---- 18. tutorials: the five flows, iclaims at its full budget -----
     launches_tut = tutorials_phase(A, np, torch)
 
+    # ---- 19. deep: depth caps above 8 through every tape kernel ---------
+    launches_deep, deep_times = deep_phase(A, np, torch, t_days, y,
+                                           ds_future, sched, fit_ms8)
+
     # Each kernel's launches are those of the path that is its own: the
     # config-4 fit (phase 8) for the first five, the online run (phase 12)
     # for the unfused backward, the dense_grad drive of cov_matrix_diff(
@@ -2901,7 +3618,9 @@ def main():
                 "launches_depth": launches_depth[name],
                 "launches_config2": launches_c2[name],
                 "launches_mesh_rank0": launches_mesh[name],
-                "launches_tutorials": launches_tut[name]}
+                "launches_tutorials": launches_tut[name],
+                "launches_deep": launches_deep[name],
+                "ms_cap5_cap10": deep_times.get(name)}
 
     kernels = [
         entry("cov_tape", "cov_tape.cu", "autogp_tpu/ops/cov_pallas.py:252",

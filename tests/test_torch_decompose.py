@@ -2,8 +2,7 @@
 in float64: ports of tests/test_api.py's decompose / extract / split,
 GP-sum and predict_sum tests, on models carried from the JAX package by
 to_dict / from_dict; the GP-sum posterior against the direct conditional;
-components deeper than kernel 1's bound (the plain version takes any
-depth) against the float64 host oracle."""
+components deeper than 8 levels against the float64 host oracle."""
 
 import warnings
 
@@ -18,7 +17,6 @@ from autogp_tpu import gp_math as JGM
 from autogp_tpu_torch import gp_math as TGM
 from autogp_tpu_torch import model as TM
 from autogp_tpu_torch import tree as TT
-from autogp_tpu_torch.ops import cov
 
 F64 = torch.float64
 GP = A.GP
@@ -245,10 +243,9 @@ def test_predict_mvn_sum_matches_the_jax_package(models, noise_pred):
 
 
 def test_predict_mvn_sum_deep_components():
-    """Components deeper than kernel 1's bound of 8 levels, which the
-    plain version takes on the CPU (on the card cov_tape raises): a
-    particle whose Periodic split is 9 levels deep, against the float64
-    host construction of its blocks."""
+    """Components deeper than 8 levels (the bound kernel 1 once had on
+    the card; it now takes any depth): a particle whose Periodic split is 9
+    levels deep, against the float64 host construction of its blocks."""
     inner = GP.ChangePoint(GP.Periodic(0.3, 0.2, 1.0),
                            GP.Linear(0.1, 0.2, 0.3), 0.4, 1e-3)
     k = inner
@@ -263,7 +260,7 @@ def test_predict_mvn_sum_deep_components():
                   device="cpu")
     m = A.gp_model_from_kernels(m, [k])
     comps = A.api.sum_components(m, GP.Periodic)[0]
-    assert max(c.depth for c in comps) > cov.MAX_DEPTH
+    assert max(c.depth for c in comps) > 8
     ds_pred = np.linspace(3, 3.5, 4)
     mix, idx = A.predict_mvn_sum(m, ds_pred, GP.Periodic)
     ts, xs, tsp = m._ds_numeric(), m._y_numeric(), m._ds_numeric(ds_pred)

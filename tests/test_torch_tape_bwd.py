@@ -108,17 +108,23 @@ def test_tile_runs_cover_the_cotangent(fused, N, n_act, scatter, P):
     (400, 1024, 5), (16, 1024, 8), (64, 200, 8)])
 def test_given_scratch_fits_the_runs(P, N, depth):
     """The scratch of the given-cotangent entries (kernels 5b and 7, one
-    body): a float64 partial row of 3M + 1 sums for each block of the
-    unfused walk, so a particle's partials are its runs of tiles, and
-    kernel 7's tapes, build_tape's slot, type, lpos and rpos [P, M] and
-    the lengths [P] in one int32 buffer."""
+    body): a float64 partial row of 3 L + 1 sums (L the batch's longest
+    tape, M by default) for each block of the unfused walk, so a
+    particle's partials are its runs of tiles, and kernel 7's tapes,
+    build_tape's slot, type, lpos and rpos [P, M], each slot's tape
+    position [P, M] and the lengths [P] in one int32 buffer."""
     M = (1 << depth) - 1
     part, tapes = cov_vjp.given_scratch(P, M, N)
     runs = cov_vjp.tile_runs(torch.ones(N, dtype=torch.float64), P, False)
     assert part == (P, len(runs), 3 * M + 1)
     assert part[1] <= (-(-N // TILE)) ** 2
     nt = _heaps(depth, [1 + p % 4 for p in range(P)])
-    assert tapes == (sum(t.numel() for t in cov.build_tape(nt, depth)),)
+    slot, ttype, lpos, rpos, tlen, _ = cov.build_tape(nt, depth)
+    assert tapes == (sum(t.numel() for t in (slot, ttype, lpos, rpos, slot,
+                                              tlen)),)
+    L = int(tlen.max())
+    assert cov_vjp.given_scratch(P, M, N, max_len=L)[0] == (
+        P, len(runs), 3 * L + 1)
 
 
 def test_terms_per_type_are_the_parameters():
@@ -135,7 +141,7 @@ def test_tape_terms_and_threads_fit_the_budget():
     most that do, and are all 256 for tapes of up to 5 positions."""
     for depth, n_leaves in ((5, range(1, 17)), (8, (128,))):
         nt = _heaps(depth, n_leaves)
-        _, ttype, _, _, tlen = cov.build_tape(nt, depth)
+        _, ttype, _, _, tlen, _ = cov.build_tape(nt, depth)
         terms = cov_vjp.tape_terms(ttype, tlen)
         for L, n, types in zip(tlen.tolist(), terms.tolist(),
                                ttype.tolist()):
