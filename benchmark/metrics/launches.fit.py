@@ -1,0 +1,7 @@
+"""launches.fit: Device kernels per fit, counted by torch.profiler."""
+
+from benchmark.metrics.common import launches_per_unit
+
+
+def read(trace):
+    return launches_per_unit(trace, "fit")
