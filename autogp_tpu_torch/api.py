@@ -58,6 +58,7 @@ from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import smc
 from autogp_tpu_torch.inference.hmc import HMCConfig
 from autogp_tpu_torch.parallel import mesh as pmesh
+from autogp_tpu_torch.utils import trace
 
 # ---------------------------------------------------------------------------
 # Global seeding (api.jl:34-37; autogp_tpu/api.py:38-49)
@@ -340,16 +341,18 @@ def fit_smc(model: GPModel, schedule: Sequence[int], n_mcmc, n_hmc,
     n = len(model.ds)
     model.round_stats = []
     perm = _GLOBAL["rng"].permutation(n) if shuffle else np.arange(n)
-    model.particles = smc.run_smc_anneal_data(
-        _next_generator(model.device), model._ds_numeric(),
-        model._y_numeric(), model.config, model.tables, model.num_particles,
-        list(schedule), n_mcmc, n_hmc, dtype=model.dtype,
-        device=model.device, biased=biased,
-        hmc_cfg=_hmc_config(hmc_config, default_n_exit=1), permutation=perm,
-        adaptive_resampling=adaptive_resampling,
-        adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
-        check=check, round_stats=model.round_stats, callback_fn=callback_fn,
-        hmc_compact=hmc_compact, mesh=model.mesh)
+    with trace.unit("api.fit_smc"):
+        model.particles = smc.run_smc_anneal_data(
+            _next_generator(model.device), model._ds_numeric(),
+            model._y_numeric(), model.config, model.tables,
+            model.num_particles, list(schedule), n_mcmc, n_hmc,
+            dtype=model.dtype, device=model.device, biased=biased,
+            hmc_cfg=_hmc_config(hmc_config, default_n_exit=1),
+            permutation=perm, adaptive_resampling=adaptive_resampling,
+            adaptive_rejuvenation=adaptive_rejuvenation, verbose=verbose,
+            check=check, round_stats=model.round_stats,
+            callback_fn=callback_fn, hmc_compact=hmc_compact,
+            mesh=model.mesh)
     return model
 
 
@@ -365,18 +368,21 @@ def mcmc_structure(model: GPModel, n_mcmc: int, n_hmc: int,
     to 2). Returns the per-particle count of accepted moves [P] (the
     whole batch under a mesh)."""
     hc = _hmc_config(hmc_config, default_n_exit=2)
-    particles, n_acc, _, _, ok = smc.rejuvenate_structure(
-        _next_generator(model.device), model.particles, model._dataset(),
-        model.config, model.tables, n_mcmc, n_hmc, biased, hmc_cfg=hc,
-        check=check, mesh=model.mesh)
-    model.particles = particles
-    if check:
-        assert bool(model._gather(ok).all()), \
-            "per-move involution round trip failed"
-        smc.validate_particles(particles, model.config, tables=model.tables,
-                               gen=_next_generator(model.device),
-                               mesh=model.mesh)
-    return model._gather(n_acc).cpu().numpy()
+    with trace.unit("api.mcmc_structure"):
+        particles, n_acc, _, _, ok = smc.rejuvenate_structure(
+            _next_generator(model.device), model.particles, model._dataset(),
+            model.config, model.tables, n_mcmc, n_hmc, biased, hmc_cfg=hc,
+            check=check, mesh=model.mesh)
+        model.particles = particles
+        if check:
+            assert bool(model._gather(ok).all()), \
+                "per-move involution round trip failed"
+            smc.validate_particles(particles, model.config,
+                                   tables=model.tables,
+                                   gen=_next_generator(model.device),
+                                   mesh=model.mesh)
+        with trace.sync("api.accepted"):
+            return model._gather(n_acc).cpu().numpy()
 
 
 def fit_mcmc(model: GPModel, n_mcmc: int, n_hmc: int, biased: bool = False,
@@ -419,9 +425,10 @@ def mcmc_parameters(model: GPModel, n_hmc: int, hmc_config=None,
 
 def add_data(model: GPModel, ds, y):
     """Incorporate new observations via one SMC reweight (api.jl:426-443)."""
-    model.ds = np.concatenate([model.ds, np.asarray(ds)])
-    model.y = np.concatenate([model.y, np.asarray(y, dtype=np.float64)])
-    _reweight_current(model)
+    with trace.unit("api.add_data"):
+        model.ds = np.concatenate([model.ds, np.asarray(ds)])
+        model.y = np.concatenate([model.y, np.asarray(y, dtype=np.float64)])
+        _reweight_current(model)
     return model
 
 
@@ -431,9 +438,10 @@ def remove_data(model: GPModel, ds):
     sel = np.isin(model.ds, ds)
     if not sel.any():
         raise ValueError(f"No such time points {ds}")
-    model.ds = model.ds[~sel]
-    model.y = model.y[~sel]
-    _reweight_current(model)
+    with trace.unit("api.remove_data"):
+        model.ds = model.ds[~sel]
+        model.y = model.y[~sel]
+        _reweight_current(model)
     return model
 
 
@@ -446,10 +454,12 @@ def _reweight_current(model: GPModel):
 def maybe_resample(model: GPModel, ess_threshold: float) -> bool:
     """Multinomial resampling if the ESS is below `ess_threshold`
     (api.jl:472-479). Returns whether it resampled."""
-    model.particles, did = smc.maybe_resample(
-        _next_generator(model.device), model.particles, ess_threshold,
-        model.mesh)
-    return bool(did)
+    with trace.unit("api.maybe_resample"):
+        model.particles, did = smc.maybe_resample(
+            _next_generator(model.device), model.particles, ess_threshold,
+            model.mesh)
+        with trace.sync("api.resampled"):
+            return bool(did)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch import tree as T
+from autogp_tpu_torch.utils import trace
 
 
 class HMCConfig(NamedTuple):
@@ -68,31 +69,33 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
     the initial U and gradient at q0; the last iteration's U is the
     endpoint energy (hmc.py:69-93)."""
     ts, xs, mask = data
-    pmask = T.param_mask(node_type).to(params_z.dtype)
 
     def value_and_grad(q):
-        with torch.enable_grad():
+        with trace.span("hmc.leapfrog"), torch.enable_grad():
             q = q.detach().requires_grad_(True)
             lml = M.lml(node_type, q, noise_z, ts, xs, mask, cfg, tables,
                         part_batch=part_batch)
             u_q = -(_lp_params(q, pmask) + M.normal_logpdf(noise_z) + lml)
-            (g,) = torch.autograd.grad(u_q.sum(), q)
+            with trace.span("model.lml_grad"):
+                (g,) = torch.autograd.grad(u_q.sum(), q)
         return u_q.detach(), lml.detach(), g * pmask
 
-    q, p = params_z, mom0
-    g = torch.zeros_like(params_z)
-    for i in range(L + 1):
-        e = 0.0 if i == 0 else eps
-        p = p - 0.5 * e * g
-        q = q + e * p * pmask
-        u_q, lml, g = value_and_grad(q)
-        p = p - 0.5 * e * g
-        if i == 0:
-            u0 = u_q
-    accept = _accept(u0, u_q, gp_math.row_sum(p * p, dim=(-2, -1)),
-                     gp_math.row_sum(mom0 * mom0, dim=(-2, -1)), u)
-    return (torch.where(accept[:, None, None], q, params_z),
-            torch.where(accept, lml, lml_cached), accept)
+    with trace.span("hmc.params_trajectory"):
+        pmask = T.param_mask(node_type).to(params_z.dtype)
+        q, p = params_z, mom0
+        g = torch.zeros_like(params_z)
+        for i in range(L + 1):
+            e = 0.0 if i == 0 else eps
+            p = p - 0.5 * e * g
+            q = q + e * p * pmask
+            u_q, lml, g = value_and_grad(q)
+            p = p - 0.5 * e * g
+            if i == 0:
+                u0 = u_q
+        accept = _accept(u0, u_q, gp_math.row_sum(p * p, dim=(-2, -1)),
+                         gp_math.row_sum(mom0 * mom0, dim=(-2, -1)), u)
+        return (torch.where(accept[:, None, None], q, params_z),
+                torch.where(accept, lml, lml_cached), accept)
 
 
 def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
@@ -106,36 +109,38 @@ def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
     once and every leapfrog pays the factorization and the kinv
     statistics only (hmc.py:96-156)."""
     ts, xs, mask = data
-    pmask = T.param_mask(node_type).to(params_z.dtype)
-    lp_params = _lp_params(params_z, pmask)
     use_k0 = gp_math.use_blocked_inv(ts.shape[0])
-    K0 = (M.assemble_K0(node_type, params_z, ts, mask, cfg, tables)
-          if use_k0 else None)
 
     def value_and_grad(nz):
-        if use_k0:
-            lml, glml = M.lml_value_and_noise_grad_from_K0(K0, nz, xs, mask,
-                                                           cfg)
-        else:
-            lml, glml = M.lml_value_and_noise_grad(
-                node_type, params_z, nz, ts, xs, mask, cfg, tables,
-                part_batch=part_batch)
-        u_q = -(lp_params + M.normal_logpdf(nz) + lml)
-        return u_q, lml, -(-nz + glml)
+        with trace.span("hmc.leapfrog"):
+            if use_k0:
+                lml, glml = M.lml_value_and_noise_grad_from_K0(K0, nz, xs,
+                                                               mask, cfg)
+            else:
+                lml, glml = M.lml_value_and_noise_grad(
+                    node_type, params_z, nz, ts, xs, mask, cfg, tables,
+                    part_batch=part_batch)
+            u_q = -(lp_params + M.normal_logpdf(nz) + lml)
+            return u_q, lml, -(-nz + glml)
 
-    q, p = noise_z, mom0
-    g = torch.zeros_like(noise_z)
-    for i in range(L + 1):
-        e = 0.0 if i == 0 else eps
-        p = p - 0.5 * e * g
-        q = q + e * p
-        u_q, lml, g = value_and_grad(q)
-        p = p - 0.5 * e * g
-        if i == 0:
-            u0 = u_q
-    accept = _accept(u0, u_q, p * p, mom0 * mom0, u)
-    return (torch.where(accept, q, noise_z),
-            torch.where(accept, lml, lml_cached), accept)
+    with trace.span("hmc.noise_trajectory"):
+        pmask = T.param_mask(node_type).to(params_z.dtype)
+        lp_params = _lp_params(params_z, pmask)
+        K0 = (M.assemble_K0(node_type, params_z, ts, mask, cfg, tables)
+              if use_k0 else None)
+        q, p = noise_z, mom0
+        g = torch.zeros_like(noise_z)
+        for i in range(L + 1):
+            e = 0.0 if i == 0 else eps
+            p = p - 0.5 * e * g
+            q = q + e * p
+            u_q, lml, g = value_and_grad(q)
+            p = p - 0.5 * e * g
+            if i == 0:
+                u0 = u_q
+        accept = _accept(u0, u_q, p * p, mom0 * mom0, u)
+        return (torch.where(accept, q, noise_z),
+                torch.where(accept, lml, lml_cached), accept)
 
 
 def hmc_params_step(gen, node_type, params_z, noise_z, lml_cached, data,
@@ -198,39 +203,42 @@ def rejuvenate_parameters(gen, node_type, params_z, noise_z, lml_cached,
     params_z, noise_z, lml = params_z.clone(), noise_z.clone(), \
         lml_cached.clone()
     for _ in range(n_hmc):
-        idx = torch.nonzero(alive).flatten()
-        # The unsharded sweep's batch: the live particles of every rank.
-        n_live = (idx.numel() if mesh is None
-                  else int(mesh.sum(torch.tensor(idx.numel()))))
-        if n_live == 0:
-            break
-        if not compact:
-            idx = torch.arange(P, device=dev)
-            n_live = shard.total
-        nt_i = node_type[idx]
-        pz_i, lml_i, acc_i = hmc_params_step(
-            gen, nt_i, params_z[idx], noise_z[idx], lml[idx], data, cfg,
-            tables, hmc.eps_param, hmc.L_param, idx + shard.offset,
-            shard.total, part_batch=n_live)
-        nz_i = noise_z[idx]
-        if infer_noise:
-            nz_i, lml_i, _ = hmc_noise_step(
-                gen, nt_i, pz_i, nz_i, lml_i, data, cfg, tables,
-                hmc.eps_noise, hmc.L_noise, idx + shard.offset, shard.total,
-                part_batch=n_live)
-        if compact:
-            params_z[idx] = pz_i
-            noise_z[idx] = nz_i
-            lml[idx] = lml_i
-            acc = torch.zeros_like(alive)
-            acc[idx] = acc_i
-        else:
-            params_z = torch.where(alive[:, None, None], pz_i, params_z)
-            noise_z = torch.where(alive, nz_i, noise_z)
-            lml = torch.where(alive, lml_i, lml)
-            acc = acc_i & alive
-        n_accept += acc.to(torch.int64)
-        n_sweeps += alive.to(torch.int64)
-        n_reject = torch.where(acc, 0, n_reject + alive.to(torch.int64))
-        alive = alive & (n_reject < hmc.n_exit)
+        with trace.span("hmc.sweep"):
+            with trace.sync("hmc.live"):
+                idx = torch.nonzero(alive).flatten()
+                # The unsharded sweep's batch: the live particles of every
+                # rank.
+                n_live = (idx.numel() if mesh is None
+                          else int(mesh.sum(torch.tensor(idx.numel()))))
+            if n_live == 0:
+                break
+            if not compact:
+                idx = torch.arange(P, device=dev)
+                n_live = shard.total
+            nt_i = node_type[idx]
+            pz_i, lml_i, acc_i = hmc_params_step(
+                gen, nt_i, params_z[idx], noise_z[idx], lml[idx], data, cfg,
+                tables, hmc.eps_param, hmc.L_param, idx + shard.offset,
+                shard.total, part_batch=n_live)
+            nz_i = noise_z[idx]
+            if infer_noise:
+                nz_i, lml_i, _ = hmc_noise_step(
+                    gen, nt_i, pz_i, nz_i, lml_i, data, cfg, tables,
+                    hmc.eps_noise, hmc.L_noise, idx + shard.offset,
+                    shard.total, part_batch=n_live)
+            if compact:
+                params_z[idx] = pz_i
+                noise_z[idx] = nz_i
+                lml[idx] = lml_i
+                acc = torch.zeros_like(alive)
+                acc[idx] = acc_i
+            else:
+                params_z = torch.where(alive[:, None, None], pz_i, params_z)
+                noise_z = torch.where(alive, nz_i, noise_z)
+                lml = torch.where(alive, lml_i, lml)
+                acc = acc_i & alive
+            n_accept += acc.to(torch.int64)
+            n_sweeps += alive.to(torch.int64)
+            n_reject = torch.where(acc, 0, n_reject + alive.to(torch.int64))
+            alive = alive & (n_reject < hmc.n_exit)
     return params_z, noise_z, lml, n_accept, n_sweeps

@@ -22,6 +22,7 @@ from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch import tree as T
+from autogp_tpu_torch.utils import trace
 
 
 class PickPath(NamedTuple):
@@ -175,18 +176,20 @@ def score_proposal(gen, prop: MHProposal, node_type, params_z, noise_z,
     """Score proposals with ONE batched LML (the only O(N^3) part) and
     apply the involutive-MH accept/reject (moves.py:189-204)."""
     ts, xs, mask = data
-    lml_new = M.lml(prop.node_type, prop.params, noise_z, ts, xs, mask,
-                    cfg, tables)
-    log_alpha = (lml_new - lml_cached) + prop.delta
-    u = M.draw(torch.rand, gen, lml_new.shape, lml_new.dtype, lml_new.device,
-               shard)
-    accept = ((torch.log(u) < log_alpha) & torch.isfinite(lml_new)
-              & torch.isfinite(log_alpha))
-    return MHResult(
-        node_type=torch.where(accept[:, None], prop.node_type, node_type),
-        params=torch.where(accept[:, None, None], prop.params, params_z),
-        lml=torch.where(accept, lml_new, lml_cached),
-        accepted=accept)
+    with trace.span("moves.score"):
+        lml_new = M.lml(prop.node_type, prop.params, noise_z, ts, xs, mask,
+                        cfg, tables)
+        log_alpha = (lml_new - lml_cached) + prop.delta
+        u = M.draw(torch.rand, gen, lml_new.shape, lml_new.dtype,
+                   lml_new.device, shard)
+        accept = ((torch.log(u) < log_alpha) & torch.isfinite(lml_new)
+                  & torch.isfinite(log_alpha))
+        return MHResult(
+            node_type=torch.where(accept[:, None], prop.node_type,
+                                  node_type),
+            params=torch.where(accept[:, None, None], prop.params, params_z),
+            lml=torch.where(accept, lml_new, lml_cached),
+            accepted=accept)
 
 
 def subtree_replace_step(gen, node_type, params_z, noise_z, lml_cached,
@@ -194,8 +197,9 @@ def subtree_replace_step(gen, node_type, params_z, noise_z, lml_cached,
                          biased: bool = False,
                          shard: Optional[M.Shard] = None) -> MHResult:
     """One subtree-replace involutive MH step for every particle."""
-    prop = subtree_replace_propose(gen, node_type, params_z, cfg, tables,
-                                   biased=biased, shard=shard)
+    with trace.span("moves.propose_sr"):
+        prop = subtree_replace_propose(gen, node_type, params_z, cfg, tables,
+                                       biased=biased, shard=shard)
     return score_proposal(gen, prop, node_type, params_z, noise_z,
                           lml_cached, data, cfg, tables, shard)
 
@@ -211,23 +215,26 @@ def tree_rejuvenation_step(gen, node_type, params_z, noise_z, lml_cached,
     scored: one LML per MH step (moves.py:222-251)."""
     from autogp_tpu_torch.inference import moves_da
 
-    if tables.depth_cap == 1:
-        return subtree_replace_step(gen, node_type, params_z, noise_z,
-                                    lml_cached, data, cfg, tables,
-                                    biased=biased, shard=shard)
-    P = node_type.shape[0]
-    use_da = M.draw(torch.rand, gen, (P,), params_z.dtype, params_z.device,
-                    shard) < 0.5
-    prop_sr = subtree_replace_propose(gen, node_type, params_z, cfg, tables,
-                                      biased=biased, shard=shard)
-    prop_da = moves_da.detach_attach_propose(gen, node_type, params_z,
-                                             tables, biased=biased,
-                                             shard=shard)
-    prop = MHProposal(
-        node_type=torch.where(use_da[:, None], prop_da.node_type,
-                              prop_sr.node_type),
-        params=torch.where(use_da[:, None, None], prop_da.params,
-                           prop_sr.params),
-        delta=torch.where(use_da, prop_da.delta, prop_sr.delta))
-    return score_proposal(gen, prop, node_type, params_z, noise_z,
-                          lml_cached, data, cfg, tables, shard)
+    with trace.span("moves.mh_step"):
+        if tables.depth_cap == 1:
+            return subtree_replace_step(gen, node_type, params_z, noise_z,
+                                        lml_cached, data, cfg, tables,
+                                        biased=biased, shard=shard)
+        P = node_type.shape[0]
+        use_da = M.draw(torch.rand, gen, (P,), params_z.dtype,
+                        params_z.device, shard) < 0.5
+        with trace.span("moves.propose_sr"):
+            prop_sr = subtree_replace_propose(gen, node_type, params_z, cfg,
+                                              tables, biased=biased,
+                                              shard=shard)
+        with trace.span("moves.propose_da"):
+            prop_da = moves_da.detach_attach_propose(
+                gen, node_type, params_z, tables, biased=biased, shard=shard)
+        prop = MHProposal(
+            node_type=torch.where(use_da[:, None], prop_da.node_type,
+                                  prop_sr.node_type),
+            params=torch.where(use_da[:, None, None], prop_da.params,
+                               prop_sr.params),
+            delta=torch.where(use_da, prop_da.delta, prop_sr.delta))
+        return score_proposal(gen, prop, node_type, params_z, noise_z,
+                              lml_cached, data, cfg, tables, shard)

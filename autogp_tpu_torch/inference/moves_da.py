@@ -28,6 +28,7 @@ from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch import tree as T
 from autogp_tpu_torch.inference import moves
+from autogp_tpu_torch.utils import trace
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +129,9 @@ def logq_random_path(a, hole, max_depth_aux, tables, dtype,
                      noroot: bool = False):
     """[P] density of generate_random_path choosing `hole` from `a`."""
     L = (tables.depths[hole] - tables.depths[a]).to(dtype)
-    log_half = torch.tensor(np.log(0.5), dtype=dtype, device=a.device)
+    # A host-to-device copy waits for the device's queue.
+    with trace.sync("moves.log_half"):
+        log_half = torch.tensor(np.log(0.5), dtype=dtype, device=a.device)
     zero = torch.zeros((), dtype=dtype, device=a.device)
     cont_lp = L * log_half
     if noroot:

@@ -33,6 +33,7 @@ from autogp_tpu_torch.inference import check as check_mod
 from autogp_tpu_torch.inference import hmc as hmc_mod
 from autogp_tpu_torch.inference import moves
 from autogp_tpu_torch.parallel import mesh as pmesh
+from autogp_tpu_torch.utils import trace
 
 # Finite stand-in for the cached LML of a particle whose factorization
 # failed (smc.py:45-51): its weight becomes -inf while later weight
@@ -89,7 +90,9 @@ def make_dataset(ts, xs, n: Optional[int] = None,
     def f(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    return Dataset(f(tp), f(xp), f(mk))
+    # Host-to-device copies: each waits for the device's queue.
+    with trace.sync("smc.dataset"):
+        return Dataset(f(tp), f(xp), f(mk))
 
 
 def _data(d: Dataset):
@@ -124,26 +127,28 @@ def initialize(gen, n_particles: int, data: Dataset, cfg: C.GPConfig,
         return nt, pz, nz, w, lml
 
     def any_bad():
-        return bool(bad.any()) if mesh is None else mesh.any(bad)
+        with trace.sync("smc.init_retry"):
+            return bool(bad.any()) if mesh is None else mesh.any(bad)
 
-    nt, pz, nz, w, lml = gen_batch()
-    bad = ~(torch.isfinite(w) & torch.isfinite(lml))
-    retry = 0
-    while any_bad() and retry < max_retries:
-        retry += 1
-        nt2, pz2, nz2, w2, lml2 = gen_batch()
-        nt = torch.where(bad[:, None], nt2, nt)
-        pz = torch.where(bad[:, None, None], pz2, pz)
-        nz = torch.where(bad, nz2, nz)
-        w = torch.where(bad, w2, w)
-        lml = torch.where(bad, lml2, lml)
+    with trace.span("smc.initialize"):
+        nt, pz, nz, w, lml = gen_batch()
         bad = ~(torch.isfinite(w) & torch.isfinite(lml))
-    w = torch.where(bad, float("-inf"), w)
-    lml = torch.where(bad, BAD_LML, lml)
-    return Particles(
-        node_type=nt, params=pz, noise_z=nz, log_weights=w, lml=lml,
-        log_ml_est=torch.zeros((), dtype=ts.dtype, device=ts.device),
-        parents=torch.arange(n_particles, device=ts.device)[rows])
+        retry = 0
+        while any_bad() and retry < max_retries:
+            retry += 1
+            nt2, pz2, nz2, w2, lml2 = gen_batch()
+            nt = torch.where(bad[:, None], nt2, nt)
+            pz = torch.where(bad[:, None, None], pz2, pz)
+            nz = torch.where(bad, nz2, nz)
+            w = torch.where(bad, w2, w)
+            lml = torch.where(bad, lml2, lml)
+            bad = ~(torch.isfinite(w) & torch.isfinite(lml))
+        w = torch.where(bad, float("-inf"), w)
+        lml = torch.where(bad, BAD_LML, lml)
+        return Particles(
+            node_type=nt, params=pz, noise_z=nz, log_weights=w, lml=lml,
+            log_ml_est=torch.zeros((), dtype=ts.dtype, device=ts.device),
+            parents=torch.arange(n_particles, device=ts.device)[rows])
 
 
 def lml_all(particles: Particles, data: Dataset, cfg, tables):
@@ -177,13 +182,14 @@ def reweight(particles: Particles, data: Dataset, cfg, tables) -> Particles:
     """Gen.update with incremental data: weight += LML_new - LML_cached. A
     non-finite new LML sets the weight to -inf and the cached LML to the
     finite BAD_LML instead of propagating NaN."""
-    lml_new = lml_all(particles, data, cfg, tables)
-    ok = torch.isfinite(lml_new)
-    return particles.replace(
-        log_weights=torch.where(
-            ok, particles.log_weights + lml_new - particles.lml,
-            float("-inf")),
-        lml=torch.where(ok, lml_new, BAD_LML))
+    with trace.span("smc.reweight"):
+        lml_new = lml_all(particles, data, cfg, tables)
+        ok = torch.isfinite(lml_new)
+        return particles.replace(
+            log_weights=torch.where(
+                ok, particles.log_weights + lml_new - particles.lml,
+                float("-inf")),
+            lml=torch.where(ok, lml_new, BAD_LML))
 
 
 def maybe_resample(gen, particles: Particles, ess_threshold, mesh=None):
@@ -194,31 +200,33 @@ def maybe_resample(gen, particles: Particles, ess_threshold, mesh=None):
     gathered batch, the (P, P) Gumbel drawn whole on every rank, and
     returns the rank's rows: the ESS, the decision, the fold and the
     parents are the unsharded program's bits."""
-    if mesh is not None:
-        out, do = maybe_resample(gen, pmesh.gather_particles(particles, mesh),
-                                 ess_threshold)
-        return pmesh.shard_particles(out, mesh), do
-    P = particles.n_particles
-    lw = particles.log_weights
-    lnw = log_normalized_weights(lw)
-    ess = 1.0 / torch.sum(torch.exp(2.0 * lnw))
-    do = ess < ess_threshold
-    # Categorical draws by Gumbel-max (no host sync, no NaN-check raise).
-    g = M.gumbel(gen, (P, P), lw.dtype, lw.device)
-    parents = torch.argmax(lnw[None, :] + g, dim=1)
-    keep = torch.arange(P, device=lw.device)
-    sel = torch.where(do, parents, keep)
-    fold = torch.logsumexp(lw, dim=0) - math.log(float(P))
-    resampled = Particles(
-        node_type=particles.node_type[sel],
-        params=particles.params[sel],
-        noise_z=particles.noise_z[sel],
-        log_weights=torch.where(do, torch.zeros_like(lw), lw),
-        lml=particles.lml[sel],
-        log_ml_est=particles.log_ml_est + torch.where(
-            do, fold, torch.zeros_like(fold)),
-        parents=torch.where(do, parents, particles.parents))
-    return resampled, do
+    with trace.span("smc.resample"):
+        if mesh is not None:
+            out, do = maybe_resample(
+                gen, pmesh.gather_particles(particles, mesh), ess_threshold)
+            return pmesh.shard_particles(out, mesh), do
+        P = particles.n_particles
+        lw = particles.log_weights
+        lnw = log_normalized_weights(lw)
+        ess = 1.0 / torch.sum(torch.exp(2.0 * lnw))
+        do = ess < ess_threshold
+        # Categorical draws by Gumbel-max (no host sync, no NaN-check
+        # raise).
+        g = M.gumbel(gen, (P, P), lw.dtype, lw.device)
+        parents = torch.argmax(lnw[None, :] + g, dim=1)
+        keep = torch.arange(P, device=lw.device)
+        sel = torch.where(do, parents, keep)
+        fold = torch.logsumexp(lw, dim=0) - math.log(float(P))
+        resampled = Particles(
+            node_type=particles.node_type[sel],
+            params=particles.params[sel],
+            noise_z=particles.noise_z[sel],
+            log_weights=torch.where(do, torch.zeros_like(lw), lw),
+            lml=particles.lml[sel],
+            log_ml_est=particles.log_ml_est + torch.where(
+                do, fold, torch.zeros_like(fold)),
+            parents=torch.where(do, parents, particles.parents))
+        return resampled, do
 
 
 # ---------------------------------------------------------------------------
@@ -253,28 +261,30 @@ def rejuvenate_structure(gen, particles: Particles, data: Dataset,
     n_sweeps = torch.zeros_like(n_acc)
     n_hmc_acc = torch.zeros_like(n_acc)
     ok = torch.ones((P, 4), dtype=torch.bool, device=dev)
-    for _ in range(n_mcmc):
-        res = moves.tree_rejuvenation_step(gen, nt, pz, nz, lml, d, cfg,
-                                           tables, biased=biased,
-                                           shard=shard)
-        nt, pz, lml = res.node_type, res.params, res.lml
-        if check:
-            valid = check_mod.trace_structurally_valid(
-                nt, changepoints=cfg.changepoints)
-            rts = check_mod.roundtrip_all(gen, nt, pz, tables,
-                                          changepoints=cfg.changepoints,
-                                          biased=biased, shard=shard)
-            ok = ok & torch.cat([valid[:, None], rts], dim=1)
-        if n_hmc > 0:
-            pz, nz, lml, acc, sw = hmc_mod.rejuvenate_parameters(
-                gen, nt, pz, nz, lml, d, cfg, tables, n_hmc, hmc_cfg,
-                infer_noise, enabled=res.accepted, compact=hmc_compact,
-                mesh=mesh)
-            n_hmc_acc = n_hmc_acc + acc
-            n_sweeps = n_sweeps + sw
-        n_acc = n_acc + res.accepted.to(torch.int64)
-    return (particles.replace(node_type=nt, params=pz, noise_z=nz, lml=lml),
-            n_acc, n_sweeps, n_hmc_acc, ok)
+    with trace.span("smc.rejuvenate"):
+        for _ in range(n_mcmc):
+            res = moves.tree_rejuvenation_step(gen, nt, pz, nz, lml, d, cfg,
+                                               tables, biased=biased,
+                                               shard=shard)
+            nt, pz, lml = res.node_type, res.params, res.lml
+            if check:
+                valid = check_mod.trace_structurally_valid(
+                    nt, changepoints=cfg.changepoints)
+                rts = check_mod.roundtrip_all(gen, nt, pz, tables,
+                                              changepoints=cfg.changepoints,
+                                              biased=biased, shard=shard)
+                ok = ok & torch.cat([valid[:, None], rts], dim=1)
+            if n_hmc > 0:
+                pz, nz, lml, acc, sw = hmc_mod.rejuvenate_parameters(
+                    gen, nt, pz, nz, lml, d, cfg, tables, n_hmc, hmc_cfg,
+                    infer_noise, enabled=res.accepted, compact=hmc_compact,
+                    mesh=mesh)
+                n_hmc_acc = n_hmc_acc + acc
+                n_sweeps = n_sweeps + sw
+            n_acc = n_acc + res.accepted.to(torch.int64)
+        return (particles.replace(node_type=nt, params=pz, noise_z=nz,
+                                  lml=lml),
+                n_acc, n_sweeps, n_hmc_acc, ok)
 
 
 def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
@@ -296,7 +306,8 @@ def smc_round(gen, particles: Particles, data: Dataset, cfg: C.GPConfig,
     if allow_resample:
         particles, resampled = maybe_resample(gen, particles, ess_threshold,
                                               mesh)
-    rejuvenated = (not adaptive_rejuvenation) or bool(resampled)
+    with trace.sync("smc.resampled"):
+        rejuvenated = (not adaptive_rejuvenation) or bool(resampled)
     P = particles.n_particles
     if rejuvenated:
         particles, n_acc, n_sweeps, n_hmc_acc, check_ok = \
@@ -398,15 +409,31 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
     def clock():
         # Elapsed times count finished device work, as the reference's
         # block_until_ready does.
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        return time.time()
+        with trace.sync("smc.clock"):
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            return time.time()
 
     def gathered(p):
         return p if mesh is None else pmesh.gather_particles(p, mesh)
 
     def total(x):
         return int(x.sum() if mesh is None else mesh.sum(x.sum()))
+
+    def print_round(step, dt_round, stats, i):
+        lw = gathered(particles).log_weights
+        acc, sweeps = (total(stats[k]) for k in ("mh_accepted",
+                                                 "hmc_sweeps"))
+        if mesh is not None and mesh.rank != 0:
+            return
+        w = normalized_weights(lw).cpu().numpy()
+        ess = float(effective_sample_size(lw))
+        print(f"SMC round {step}/{schedule[-1]} ({dt_round:.3f} s)")
+        print("Particle Weights:", np.array2string(w, precision=3))
+        print(f"Particle ESS: {ess / n_particles}")
+        print(f"resampled {bool(stats['resampled'])}")
+        print(f"accepted MCMC[{acc}/{n_particles * n_mcmc[i]}]")
+        print(f"HMC sweeps {sweeps}")
 
     def call_back(step, rejuvenated, resampled):
         callback_fn(particles=gathered(particles), ts=ts, xs=xs,
@@ -422,47 +449,45 @@ def run_smc_anneal_data(gen, ts, xs, cfg: C.GPConfig, tables,
                            mesh=mesh)
     elapsed = clock() - t0
     if callback_fn is not None:
-        call_back(0, False, False)
+        with trace.sync("smc.callback"):
+            call_back(0, False, False)
     for i, step in enumerate(schedule):
-        t0 = clock()
-        data = make_dataset(ts, xs, n=step, pad_to=bucket_size(step),
-                            dtype=dtype, device=device)
-        ess_threshold = (n_particles / 2 if adaptive_resampling
-                         else float(n_particles))
-        particles, stats = smc_round(
-            gen, particles, data, cfg, tables, int(n_mcmc[i]),
-            int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
-            adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check,
-            hmc_compact=hmc_compact, mesh=mesh)
-        dt_round = clock() - t0
-        elapsed += dt_round
-        if round_stats is not None:
-            round_stats.append({
-                "step": step, "resampled": bool(stats["resampled"]),
-                "ess": float(stats["ess"]),
-                **{k: total(stats[k]) for k in (
-                    "mh_accepted", "hmc_sweeps", "hmc_accepted")}})
-        if verbose:
-            lw = gathered(particles).log_weights
-            acc, sweeps = (total(stats[k]) for k in ("mh_accepted",
-                                                     "hmc_sweeps"))
-        if verbose and (mesh is None or mesh.rank == 0):
-            w = normalized_weights(lw).cpu().numpy()
-            ess = float(effective_sample_size(lw))
-            print(f"SMC round {step}/{schedule[-1]} ({dt_round:.3f} s)")
-            print("Particle Weights:", np.array2string(w, precision=3))
-            print(f"Particle ESS: {ess / n_particles}")
-            print(f"resampled {bool(stats['resampled'])}")
-            print(f"accepted MCMC[{acc}/{n_particles * n_mcmc[i]}]")
-            print(f"HMC sweeps {sweeps}")
-        if check:
-            ok = stats["check_ok"]
-            assert ok[:, 0].all(), "per-move structural trace validity"
-            assert ok[:, 1].all(), "per-move subtree-replace round trip"
-            assert ok[:, 2].all(), "per-move detach round trip"
-            assert ok[:, 3].all(), "per-move attach round trip"
-            validate_particles(particles, cfg, tables=tables, gen=gen,
-                               mesh=mesh)
-        if callback_fn is not None:
-            call_back(step, stats["rejuvenated"], bool(stats["resampled"]))
+        with trace.span("smc.round"):
+            t0 = clock()
+            data = make_dataset(ts, xs, n=step, pad_to=bucket_size(step),
+                                dtype=dtype, device=device)
+            ess_threshold = (n_particles / 2 if adaptive_resampling
+                             else float(n_particles))
+            particles, stats = smc_round(
+                gen, particles, data, cfg, tables, int(n_mcmc[i]),
+                int(n_hmc[i]), biased, step < schedule[-1], ess_threshold,
+                adaptive_rejuvenation, hmc_cfg=hmc_cfg, check=check,
+                hmc_compact=hmc_compact, mesh=mesh)
+            dt_round = clock() - t0
+            elapsed += dt_round
+            if round_stats is not None:
+                with trace.sync("smc.round_stats"):
+                    round_stats.append({
+                        "step": step, "resampled": bool(stats["resampled"]),
+                        "ess": float(stats["ess"]),
+                        **{k: total(stats[k]) for k in (
+                            "mh_accepted", "hmc_sweeps", "hmc_accepted")}})
+            if verbose:
+                with trace.sync("smc.verbose"):
+                    print_round(step, dt_round, stats, i)
+            if check:
+                with trace.sync("smc.check"):
+                    ok = stats["check_ok"]
+                    assert ok[:, 0].all(), \
+                        "per-move structural trace validity"
+                    assert ok[:, 1].all(), \
+                        "per-move subtree-replace round trip"
+                    assert ok[:, 2].all(), "per-move detach round trip"
+                    assert ok[:, 3].all(), "per-move attach round trip"
+                    validate_particles(particles, cfg, tables=tables,
+                                       gen=gen, mesh=mesh)
+            if callback_fn is not None:
+                with trace.sync("smc.callback"):
+                    call_back(step, stats["rejuvenated"],
+                              bool(stats["resampled"]))
     return particles

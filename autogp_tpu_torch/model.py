@@ -29,6 +29,7 @@ import torch
 from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
+from autogp_tpu_torch.utils import trace
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -115,12 +116,14 @@ def prior_tables(config: C.GPConfig, device, dtype) -> PriorTables:
         return torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                device=device)
 
-    return PriorTables(
-        node_dist=f(nd), log_node_dist=f(log_nd),
-        ttable=f(config.transform_table()), param_kind=i(C.PARAM_KIND),
-        arity=i(C.PARAM_ARITY), depths=i(gp_math.slot_depths(D)),
-        ancestors=i(gp_math.ancestor_table(D)), depth_cap=D,
-        changepoints=config.changepoints)
+    # Host-to-device copies: each waits for the device's queue.
+    with trace.sync("model.prior_tables"):
+        return PriorTables(
+            node_dist=f(nd), log_node_dist=f(log_nd),
+            ttable=f(config.transform_table()), param_kind=i(C.PARAM_KIND),
+            arity=i(C.PARAM_ARITY), depths=i(gp_math.slot_depths(D)),
+            ancestors=i(gp_math.ancestor_table(D)), depth_cap=D,
+            changepoints=config.changepoints)
 
 
 def _dist_row(depth, cp_allowed, tables: PriorTables, leaf_cap=None):
@@ -299,20 +302,22 @@ def lml(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
     batch's): a batch of some particles of a larger one passes the larger
     one's count, and each particle's gradient is then the larger batch's
     bit for bit."""
-    params_t = transform_params(node_type, params_z, tables)
-    noise = transform_noise(noise_z, config)
-    if torch.is_grad_enabled() and (params_t.requires_grad
-                                    or noise.requires_grad):
-        if gp_math.use_blocked_inv(ts.shape[0]):
-            return cov_vjp.LmlTapeFused.apply(params_t, noise, node_type, ts,
-                                              xs, mask, tables.depth_cap,
-                                              part_batch)
-        K = cov_vjp.cov_matrix_diff(node_type, params_t, noise, ts, mask,
-                                    tables.depth_cap, part_batch=part_batch)
-        return gp_math.mvn_logpdf_masked_cvjp(K, xs, mask, True)
-    K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
-                     tables.depth_cap, gram=True, lower_only=True)
-    return gp_math.mvn_logpdf_masked(K, xs, mask)
+    with trace.span("model.lml"):
+        params_t = transform_params(node_type, params_z, tables)
+        noise = transform_noise(noise_z, config)
+        if torch.is_grad_enabled() and (params_t.requires_grad
+                                        or noise.requires_grad):
+            if gp_math.use_blocked_inv(ts.shape[0]):
+                return cov_vjp.LmlTapeFused.apply(
+                    params_t, noise, node_type, ts, xs, mask,
+                    tables.depth_cap, part_batch)
+            K = cov_vjp.cov_matrix_diff(node_type, params_t, noise, ts,
+                                        mask, tables.depth_cap,
+                                        part_batch=part_batch)
+            return gp_math.mvn_logpdf_masked_cvjp(K, xs, mask, True)
+        K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
+                         tables.depth_cap, gram=True, lower_only=True)
+        return gp_math.mvn_logpdf_masked(K, xs, mask)
 
 
 def lml_f64(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
@@ -392,7 +397,8 @@ def lml_value_and_noise_grad(node_type, params_z, noise_z, ts, xs, mask,
             nz = noise_z.detach().requires_grad_(True)
             val = lml(node_type, params_z.detach(), nz, ts, xs, mask, config,
                       tables, part_batch=part_batch)
-            (grad,) = torch.autograd.grad(val.sum(), nz)
+            with trace.span("model.lml_grad"):
+                (grad,) = torch.autograd.grad(val.sum(), nz)
         return val.detach(), grad
     params_t = transform_params(node_type, params_z, tables)
     noise = transform_noise(noise_z, config)

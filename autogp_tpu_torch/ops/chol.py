@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from autogp_tpu_torch import backend
+from autogp_tpu_torch.utils import trace
 
 BLOCK = 128
 
@@ -95,40 +96,41 @@ def _driver(K, x, want_l: bool, want_wd: bool = False):
     on BASELINE config 2's joint gram (condition ~6e5, N = 1000) float32
     updates put the LML 0.05-0.18 off, float64 ones at most 0.01 (NVIDIA
     H100, autogp_tpu_torch/scripts/chol_ab.py)."""
-    P, N, _ = K.shape
-    Bfull = min(N, BLOCK)
-    if want_wd and N % Bfull != 0:
-        raise ValueError(f"Wd needs N={N} a multiple of the panel width "
-                         f"{Bfull}")
-    if backend.on_cuda(K):
-        backend.require_ieee_f32()
-    acc = torch.float64 if K.dtype == torch.float32 else K.dtype
-    nb = -(-N // Bfull)
-    A = K.to(acc)
-    xcur = x.to(acc)
-    diags, alphas, wds = [], [], []
-    L = torch.zeros_like(K) if want_l else None
-    for k in range(nb):
-        r0 = k * Bfull
-        B = min(Bfull, N - r0)
-        Lkk, Winv = panel_factor(A[:, :B, :B].to(K.dtype))
-        W = Winv.to(acc)
-        a_k = torch.matmul(W, xcur[:, :B, None])[..., 0]
-        alphas.append(a_k.to(K.dtype))
-        diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
-        if want_wd:
-            wds.append(Winv)
-        if want_l:
-            L[:, r0:r0 + B, r0:r0 + B] = Lkk
-        if k + 1 < nb:
-            L21 = torch.matmul(A[:, B:, :B], W.mT)          # [P, m-B, B]
-            # Trailing update; only its lower triangle is read later.
-            A = torch.baddbmm(A[:, B:, B:], L21, L21.mT, alpha=-1.0)
-            xcur = xcur[:, B:] - torch.matmul(L21, a_k[..., None])[..., 0]
+    with trace.span("ops.chol"):
+        P, N, _ = K.shape
+        Bfull = min(N, BLOCK)
+        if want_wd and N % Bfull != 0:
+            raise ValueError(f"Wd needs N={N} a multiple of the panel width "
+                             f"{Bfull}")
+        if backend.on_cuda(K):
+            backend.require_ieee_f32()
+        acc = torch.float64 if K.dtype == torch.float32 else K.dtype
+        nb = -(-N // Bfull)
+        A = K.to(acc)
+        xcur = x.to(acc)
+        diags, alphas, wds = [], [], []
+        L = torch.zeros_like(K) if want_l else None
+        for k in range(nb):
+            r0 = k * Bfull
+            B = min(Bfull, N - r0)
+            Lkk, Winv = panel_factor(A[:, :B, :B].to(K.dtype))
+            W = Winv.to(acc)
+            a_k = torch.matmul(W, xcur[:, :B, None])[..., 0]
+            alphas.append(a_k.to(K.dtype))
+            diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
+            if want_wd:
+                wds.append(Winv)
             if want_l:
-                L[:, r0 + B:, r0:r0 + B] = L21
-    wd = torch.stack(wds, dim=1) if want_wd else None
-    return L, torch.cat(diags, dim=1), torch.cat(alphas, dim=1), wd
+                L[:, r0:r0 + B, r0:r0 + B] = Lkk
+            if k + 1 < nb:
+                L21 = torch.matmul(A[:, B:, :B], W.mT)          # [P, m-B, B]
+                # Trailing update; only its lower triangle is read later.
+                A = torch.baddbmm(A[:, B:, B:], L21, L21.mT, alpha=-1.0)
+                xcur = xcur[:, B:] - torch.matmul(L21, a_k[..., None])[..., 0]
+                if want_l:
+                    L[:, r0 + B:, r0:r0 + B] = L21
+        wd = torch.stack(wds, dim=1) if want_wd else None
+        return L, torch.cat(diags, dim=1), torch.cat(alphas, dim=1), wd
 
 
 def chol_solve_diag(K, x):

@@ -43,6 +43,7 @@ import torch
 from autogp_tpu_torch import backend
 from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
+from autogp_tpu_torch.utils import trace
 
 # A heap of up to this many slots (depth cap 5) bounds its own tapes.
 SMALL_HEAP = 31
@@ -116,8 +117,12 @@ def tape_maxima(tape_type, length, height, depth_cap: int):
     batch, or the heap's bounds of them for a heap of up to SMALL_HEAP
     slots (no sync)."""
     M = (1 << depth_cap) - 1
-    terms = None if M <= SMALL_HEAP else tape_terms(tape_type, length)
-    return _read_maxima(length, height, terms, depth_cap)
+    if M <= SMALL_HEAP:
+        return _read_maxima(None, None, None, depth_cap)
+    # The terms table's upload and the read both wait for the device.
+    with trace.sync("ops.cov.maxima"):
+        return _read_maxima(length, height, tape_terms(tape_type, length),
+                            depth_cap)
 
 
 def heap_maxima(node_type, depth_cap: int):
@@ -130,9 +135,10 @@ def heap_maxima(node_type, depth_cap: int):
     nt = node_type.to(torch.int64)[:, _postorder(depth_cap, node_type.device)]
     act = nt > 0
     length = act.sum(1)
-    per = torch.as_tensor(TERMS_OF_TYPE, device=nt.device)
-    return _read_maxima(length, _stack_height(nt, act), per[nt].sum(1) + 1,
-                        depth_cap)
+    with trace.sync("ops.cov.maxima"):
+        per = torch.as_tensor(TERMS_OF_TYPE, device=nt.device)
+        return _read_maxima(length, _stack_height(nt, act),
+                            per[nt].sum(1) + 1, depth_cap)
 
 
 def _stack_height(types, valid):
@@ -260,46 +266,48 @@ def _launch(node_type, params_t, noise, t_row, t_col, m_row, m_col,
     instance (the same output bit for bit: tests)."""
     global launches, f64_launches
     from autogp_tpu_torch.ops import _build
-    P, M = node_type.shape
-    N1, N2 = t_row.shape[0], t_col.shape[0]
-    if M != (1 << depth_cap) - 1:
-        raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
-    f64 = params_t.dtype == torch.float64
-    name = "autogp_cov_tape_f64" if f64 else "autogp_cov_tape"
-    if tp is None:
-        tp = tape(node_type, depth_cap)
-    check_tape(name[7:], tp.max_len)
-    tslot, ttype, tlen = tp.slot, tp.type, tp.length
-    ft = torch.float64 if f64 else torch.float32
-    args = [("tape_slot", tslot, torch.int32, 2),
-            ("tape_type", ttype, torch.int32, 2),
-            ("tape_len", tlen, torch.int32, 1),
-            ("params", params_t, ft, 3), ("noise", noise, ft, 1),
-            ("t_row", t_row, ft, 1), ("t_col", t_col, ft, 1),
-            ("mask_row", m_row, ft, 1), ("mask_col", m_col, ft, 1)]
-    for arg, t, dt, nd in args:
-        backend.check_kernel_input(arg, t, dt, nd)
-    if params_t.shape != (P, M, 3) or noise.shape != (P,):
-        raise ValueError("params_t must be [P, M, 3] and noise [P]")
-    if m_row.shape != (N1,) or m_col.shape != (N2,):
-        raise ValueError("masks must match their time grids")
-    out = torch.empty((P, N1, N2), dtype=ft, device=params_t.device)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(params_t.device).cuda_stream
-    maxima = ((tp.max_len,) if f64
-              else (tp.max_len, max(tp.max_height, min_height)))
-    err = getattr(lib, name)(
-        tslot.data_ptr(), ttype.data_ptr(), tlen.data_ptr(),
-        params_t.data_ptr(), noise.data_ptr(), t_row.data_ptr(),
-        t_col.data_ptr(), m_row.data_ptr(), m_col.data_ptr(),
-        out.data_ptr(), P, M, N1, N2, int(gram), int(lower_only), *maxima,
-        stream)
-    _build.check(name, err)
-    if f64:
-        f64_launches += 1
-    else:
-        launches += 1
-    return out
+    with trace.span("ops.cov_tape"):
+        P, M = node_type.shape
+        N1, N2 = t_row.shape[0], t_col.shape[0]
+        if M != (1 << depth_cap) - 1:
+            raise ValueError(f"heap of {M} slots does not match depth "
+                             f"{depth_cap}")
+        f64 = params_t.dtype == torch.float64
+        name = "autogp_cov_tape_f64" if f64 else "autogp_cov_tape"
+        if tp is None:
+            tp = tape(node_type, depth_cap)
+        check_tape(name[7:], tp.max_len)
+        tslot, ttype, tlen = tp.slot, tp.type, tp.length
+        ft = torch.float64 if f64 else torch.float32
+        args = [("tape_slot", tslot, torch.int32, 2),
+                ("tape_type", ttype, torch.int32, 2),
+                ("tape_len", tlen, torch.int32, 1),
+                ("params", params_t, ft, 3), ("noise", noise, ft, 1),
+                ("t_row", t_row, ft, 1), ("t_col", t_col, ft, 1),
+                ("mask_row", m_row, ft, 1), ("mask_col", m_col, ft, 1)]
+        for arg, t, dt, nd in args:
+            backend.check_kernel_input(arg, t, dt, nd)
+        if params_t.shape != (P, M, 3) or noise.shape != (P,):
+            raise ValueError("params_t must be [P, M, 3] and noise [P]")
+        if m_row.shape != (N1,) or m_col.shape != (N2,):
+            raise ValueError("masks must match their time grids")
+        out = torch.empty((P, N1, N2), dtype=ft, device=params_t.device)
+        lib = _build.library()
+        stream = torch.cuda.current_stream(params_t.device).cuda_stream
+        maxima = ((tp.max_len,) if f64
+                  else (tp.max_len, max(tp.max_height, min_height)))
+        err = getattr(lib, name)(
+            tslot.data_ptr(), ttype.data_ptr(), tlen.data_ptr(),
+            params_t.data_ptr(), noise.data_ptr(), t_row.data_ptr(),
+            t_col.data_ptr(), m_row.data_ptr(), m_col.data_ptr(),
+            out.data_ptr(), P, M, N1, N2, int(gram), int(lower_only), *maxima,
+            stream)
+        _build.check(name, err)
+        if f64:
+            f64_launches += 1
+        else:
+            launches += 1
+        return out
 
 
 def cov_matrix_plain(node_type, params_t, noise, ts, mask, depth_cap: int,

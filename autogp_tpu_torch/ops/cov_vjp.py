@@ -64,6 +64,7 @@ import torch
 from autogp_tpu_torch import backend
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops import chol, cov, kinv
+from autogp_tpu_torch.utils import trace
 
 launches = 0
 linv_launches = 0
@@ -229,43 +230,46 @@ def _launch(node_type, params_t, ts, mask, kmat, beta, g, depth_cap,
     in-tape L^-1 entry (kmat = V), with the partition of
     `part_of(P, part_batch)` particles."""
     from autogp_tpu_torch.ops import _build
-    P, M = node_type.shape
-    N = ts.shape[0]
-    if M != (1 << depth_cap) - 1:
-        raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
-    if N % TILE != 0:
-        raise ValueError(f"cov_tape_bwd: N={N} is not a multiple of {TILE}")
-    name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
-    if tp is None:
-        tp = cov.tape(node_type, depth_cap)
-    cov.check_tape(name[7:], tp.max_len, tp.max_terms)
-    f32 = torch.float32
-    args = [("params", params_t, f32, 3), ("ts", ts, f32, 1),
-            ("mask", mask, f32, 1), ("kmat", kmat, f32, 3),
-            ("beta", beta, f32, 2), ("g", g, f32, 1)]
-    for arg, t, dt, nd in args:
-        backend.check_kernel_input(arg, t, dt, nd)
-    if (params_t.shape != (P, M, 3) or kmat.shape != (P, N, N)
-            or beta.shape != (P, N) or g.shape != (P,)
-            or mask.shape != (N,)):
-        raise ValueError("cov_tape_bwd: shapes do not match [P, M] trees "
-                         "on N points")
-    dev = params_t.device
-    part = part_of(P, part_batch)
-    partial = torch.empty((P, bwd_chunks(P, N, True, part),
-                           3 * tp.max_len + 1),
-                          dtype=torch.float64, device=dev)
-    out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, name)(
-        tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
-        tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
-        ts.data_ptr(), mask.data_ptr(), kmat.data_ptr(),
-        beta.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        P, M, N, tp.max_len, part, stream)
-    _build.check(name, err)
-    return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
+    with trace.span("ops.cov_vjp"):
+        P, M = node_type.shape
+        N = ts.shape[0]
+        if M != (1 << depth_cap) - 1:
+            raise ValueError(f"heap of {M} slots does not match depth "
+                             f"{depth_cap}")
+        if N % TILE != 0:
+            raise ValueError(f"cov_tape_bwd: N={N} is not a multiple of "
+                             f"{TILE}")
+        name = "autogp_cov_tape_bwd_linv" if linv else "autogp_cov_tape_bwd"
+        if tp is None:
+            tp = cov.tape(node_type, depth_cap)
+        cov.check_tape(name[7:], tp.max_len, tp.max_terms)
+        f32 = torch.float32
+        args = [("params", params_t, f32, 3), ("ts", ts, f32, 1),
+                ("mask", mask, f32, 1), ("kmat", kmat, f32, 3),
+                ("beta", beta, f32, 2), ("g", g, f32, 1)]
+        for arg, t, dt, nd in args:
+            backend.check_kernel_input(arg, t, dt, nd)
+        if (params_t.shape != (P, M, 3) or kmat.shape != (P, N, N)
+                or beta.shape != (P, N) or g.shape != (P,)
+                or mask.shape != (N,)):
+            raise ValueError("cov_tape_bwd: shapes do not match [P, M] trees "
+                             "on N points")
+        dev = params_t.device
+        part = part_of(P, part_batch)
+        partial = torch.empty((P, bwd_chunks(P, N, True, part),
+                               3 * tp.max_len + 1),
+                              dtype=torch.float64, device=dev)
+        out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
+        lib = _build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(
+            tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
+            tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
+            ts.data_ptr(), mask.data_ptr(), kmat.data_ptr(),
+            beta.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            P, M, N, tp.max_len, part, stream)
+        _build.check(name, err)
+        return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
 
 
 def cov_grads_plain(node_type, params_t, kbar, ts, mask, depth_cap: int,
@@ -323,48 +327,50 @@ def _launch_given(node_type, params_t, kbar, ts, mask, depth_cap, masked,
     with a given cotangent."""
     global unfused_launches, slot_launches
     from autogp_tpu_torch.ops import _build
-    P, M = node_type.shape
-    N = ts.shape[0]
-    if M != (1 << depth_cap) - 1:
-        raise ValueError(f"heap of {M} slots does not match depth {depth_cap}")
-    max_len, _, max_terms = (tp.max_len, 0, tp.max_terms) if tp else maxima
-    name = "cov_tape_bwd_unfused" if tp else "cov_slot_bwd"
-    cov.check_tape(name, max_len, max_terms)
-    f32 = torch.float32
-    for arg, t, nd in (("params", params_t, 3), ("ts", ts, 1),
-                        ("mask", mask, 1), ("kbar", kbar, 3)):
-        backend.check_kernel_input(arg, t, f32, nd)
-    if (params_t.shape != (P, M, 3) or kbar.shape != (P, N, N)
-            or mask.shape != (N,)):
-        raise ValueError("cov_grads: shapes do not match [P, M] trees on N "
-                         "points")
-    part = part_of(P, part_batch)
-    part_shape, tapes_shape = given_scratch(P, M, N, part, max_len)
-    dev = params_t.device
-    partial = torch.empty(part_shape, dtype=torch.float64, device=dev)
-    out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if tp:
-        err = lib.autogp_cov_tape_bwd_unfused(
-            tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
-            tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
-            ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), P, M, N, int(masked),
-            max_len, part, stream)
-        _build.check("autogp_cov_tape_bwd_unfused", err)
-        unfused_launches += 1
-    else:
-        nt32, order = cov.slot_inputs(node_type, depth_cap)
-        tapes = torch.empty(tapes_shape, dtype=torch.int32, device=dev)
-        err = lib.autogp_cov_slot_bwd(
-            nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
-            ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
-            tapes.data_ptr(), partial.data_ptr(), out.data_ptr(), P, M, N,
-            int(masked), max_len, part, stream)
-        _build.check("autogp_cov_slot_bwd", err)
-        slot_launches += 1
-    return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
+    with trace.span("ops.cov_vjp"):
+        P, M = node_type.shape
+        N = ts.shape[0]
+        if M != (1 << depth_cap) - 1:
+            raise ValueError(f"heap of {M} slots does not match depth "
+                             f"{depth_cap}")
+        max_len, _, max_terms = (tp.max_len, 0, tp.max_terms) if tp else maxima
+        name = "cov_tape_bwd_unfused" if tp else "cov_slot_bwd"
+        cov.check_tape(name, max_len, max_terms)
+        f32 = torch.float32
+        for arg, t, nd in (("params", params_t, 3), ("ts", ts, 1),
+                            ("mask", mask, 1), ("kbar", kbar, 3)):
+            backend.check_kernel_input(arg, t, f32, nd)
+        if (params_t.shape != (P, M, 3) or kbar.shape != (P, N, N)
+                or mask.shape != (N,)):
+            raise ValueError("cov_grads: shapes do not match [P, M] trees "
+                             "on N points")
+        part = part_of(P, part_batch)
+        part_shape, tapes_shape = given_scratch(P, M, N, part, max_len)
+        dev = params_t.device
+        partial = torch.empty(part_shape, dtype=torch.float64, device=dev)
+        out = torch.empty((P, 3 * M + 1), dtype=f32, device=dev)
+        lib = _build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tp:
+            err = lib.autogp_cov_tape_bwd_unfused(
+                tp.slot.data_ptr(), tp.type.data_ptr(), tp.lpos.data_ptr(),
+                tp.rpos.data_ptr(), tp.length.data_ptr(), params_t.data_ptr(),
+                ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), P, M, N, int(masked),
+                max_len, part, stream)
+            _build.check("autogp_cov_tape_bwd_unfused", err)
+            unfused_launches += 1
+        else:
+            nt32, order = cov.slot_inputs(node_type, depth_cap)
+            tapes = torch.empty(tapes_shape, dtype=torch.int32, device=dev)
+            err = lib.autogp_cov_slot_bwd(
+                nt32.data_ptr(), order.data_ptr(), params_t.data_ptr(),
+                ts.data_ptr(), mask.data_ptr(), kbar.data_ptr(),
+                tapes.data_ptr(), partial.data_ptr(), out.data_ptr(), P, M, N,
+                int(masked), max_len, part, stream)
+            _build.check("autogp_cov_slot_bwd", err)
+            slot_launches += 1
+        return out[:, :3 * M].reshape(P, M, 3), out[:, 3 * M]
 
 
 class CovMatrixDiff(torch.autograd.Function):

@@ -48,6 +48,7 @@ import torch
 from autogp_tpu_torch import backend
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch.ops.chol import BLOCK
+from autogp_tpu_torch.utils import trace
 
 strips_launches = 0
 stats_launches = 0
@@ -152,36 +153,38 @@ def _launch(L, alpha, wd, out):
     """(mat, beta, fro) by one launch; mat is K^-1 lower-only for out =
     "kinv" (L^-1 then lives in a scratch), L^-1 for "linv", else None."""
     from autogp_tpu_torch.ops import _build
-    f32 = torch.float32
-    backend.check_kernel_input("L", L, f32, 3)
-    backend.check_kernel_input("alpha", alpha, f32, 2)
-    backend.check_kernel_input("wd", wd, f32, 4)
-    P, N, _ = L.shape
-    B = min(N, BLOCK)
-    if B not in (32, 64, 128) or N % B != 0 or L.shape[2] != N:
-        raise ValueError(f"kinv: N={N} must be a power of two >= 32")
-    if alpha.shape != (P, N) or wd.shape != (P, N // B, B, B):
-        raise ValueError(f"kinv: alpha {tuple(alpha.shape)} / wd "
-                         f"{tuple(wd.shape)} do not match L {tuple(L.shape)}")
-    dev = L.device
-    X = torch.empty_like(L)             # L^-1: scratch, or the output
-    fro_part = torch.empty((P, N // B), dtype=torch.float64, device=dev)
-    beta = torch.empty((P, N), dtype=f32, device=dev)
-    fro = torch.empty((P,), dtype=f32, device=dev)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if out == "linv":
-        err = lib.autogp_linv_beta(L.data_ptr(), wd.data_ptr(),
-                                   alpha.data_ptr(), X.data_ptr(),
-                                   beta.data_ptr(), fro_part.data_ptr(),
-                                   fro.data_ptr(), P, N, stream)
-        _build.check("autogp_linv_beta", err)
-        return X, beta, fro
-    kinv = torch.empty_like(L) if out == "kinv" else None
-    err = lib.autogp_kinv(L.data_ptr(), wd.data_ptr(), alpha.data_ptr(),
-                          X.data_ptr(), beta.data_ptr(), fro_part.data_ptr(),
-                          fro.data_ptr(),
-                          None if kinv is None else kinv.data_ptr(), P, N,
-                          stream)
-    _build.check("autogp_kinv", err)
-    return kinv, beta, fro
+    with trace.span("ops.kinv"):
+        f32 = torch.float32
+        backend.check_kernel_input("L", L, f32, 3)
+        backend.check_kernel_input("alpha", alpha, f32, 2)
+        backend.check_kernel_input("wd", wd, f32, 4)
+        P, N, _ = L.shape
+        B = min(N, BLOCK)
+        if B not in (32, 64, 128) or N % B != 0 or L.shape[2] != N:
+            raise ValueError(f"kinv: N={N} must be a power of two >= 32")
+        if alpha.shape != (P, N) or wd.shape != (P, N // B, B, B):
+            raise ValueError(f"kinv: alpha {tuple(alpha.shape)} / wd "
+                             f"{tuple(wd.shape)} do not match L "
+                             f"{tuple(L.shape)}")
+        dev = L.device
+        X = torch.empty_like(L)             # L^-1: scratch, or the output
+        fro_part = torch.empty((P, N // B), dtype=torch.float64, device=dev)
+        beta = torch.empty((P, N), dtype=f32, device=dev)
+        fro = torch.empty((P,), dtype=f32, device=dev)
+        lib = _build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if out == "linv":
+            err = lib.autogp_linv_beta(L.data_ptr(), wd.data_ptr(),
+                                       alpha.data_ptr(), X.data_ptr(),
+                                       beta.data_ptr(), fro_part.data_ptr(),
+                                       fro.data_ptr(), P, N, stream)
+            _build.check("autogp_linv_beta", err)
+            return X, beta, fro
+        kinv = torch.empty_like(L) if out == "kinv" else None
+        err = lib.autogp_kinv(L.data_ptr(), wd.data_ptr(), alpha.data_ptr(),
+                              X.data_ptr(), beta.data_ptr(),
+                              fro_part.data_ptr(), fro.data_ptr(),
+                              None if kinv is None else kinv.data_ptr(), P, N,
+                              stream)
+        _build.check("autogp_kinv", err)
+        return kinv, beta, fro

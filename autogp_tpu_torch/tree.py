@@ -17,6 +17,7 @@ from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import kernels as K
 from autogp_tpu_torch import model as M_
+from autogp_tpu_torch.utils import trace
 
 # Field names per node type, in Julia fieldnames order (Model.jl:92).
 NODE_FIELDS = {
@@ -126,21 +127,27 @@ def subtree_sizes(node_type):
 
 def tree_depth(node_type):
     """[P] depth (1-based) of each active tree."""
-    depths = torch.as_tensor(
-        gp_math.slot_depths(node_type.shape[-1].bit_length()),
-        device=node_type.device)
+    # A host-to-device copy waits for the device's queue.
+    with trace.sync("tree.depths"):
+        depths = torch.as_tensor(
+            gp_math.slot_depths(node_type.shape[-1].bit_length()),
+            device=node_type.device)
     return torch.max(torch.where(node_type > 0, depths, 0), dim=-1).values
 
 
 def num_active_params(node_type):
     """[...] number of active continuous tree parameters of each heap
     node_type [..., M] (the HMC dimension; autogp_tpu/tree.py:141)."""
-    ar = torch.as_tensor(C.PARAM_ARITY, device=node_type.device)
+    with trace.sync("tree.arity"):
+        ar = torch.as_tensor(C.PARAM_ARITY, device=node_type.device)
     return ar[node_type].sum(dim=-1)
 
 
 def param_mask(node_type):
     """[..., M, 3] {0,1} mask of active continuous parameter slots."""
-    ar = torch.as_tensor(C.PARAM_ARITY, device=node_type.device)[node_type]
+    # A host-to-device copy waits for the device's queue.
+    with trace.sync("tree.arity"):
+        ar = torch.as_tensor(C.PARAM_ARITY,
+                             device=node_type.device)[node_type]
     return (torch.arange(C.MAX_PARAMS, device=node_type.device)
             < ar[..., None]).to(torch.float32)

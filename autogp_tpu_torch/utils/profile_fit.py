@@ -1,4 +1,4 @@
-"""Where the time of a fit goes, on one NVIDIA GPU.
+"""Where the time of a fit goes, on one NVIDIA GPU, by the port's spans.
 
     python3 -m autogp_tpu_torch.utils.profile_fit [config4|online32|config3]
 
@@ -10,23 +10,23 @@ that phase's series (every round in the 32-point bucket, where the
 gradient takes the dense route), n_mcmc=5, n_hmc=5, n_exit=1, depth cap 5,
 without the logging callback. `config3` is its greedy phase:
 fit_greedy(max_depth=3) on the 144-point airline series, one particle,
-GPConfig(changepoints=False, max_depth=3). The fit runs three times after
-a warm-up fit:
+GPConfig(changepoints=False, max_depth=3). After a warm-up fit the fit
+runs twice inside `utils/trace.py`'s recording, as one span "fit" that
+ends when the device is done:
 
-1. plain, timed with CUDA events;
-2. with host timers (each followed by a synchronize) around the MH step,
-   the parameter-HMC trajectory and the noise-HMC trajectory (config3:
-   around each probe's score-and-gradient and each stage's candidate
-   enumeration), which gives the fit's split and the pieces' count and
-   mean time;
-3. under torch.profiler (CPU and CUDA activities): device busy time (the
-   sum of kernel times) and idle share over the profiled fit, device time
-   by kernel, and host time by op. The profiler slows the host, so that
-   idle share is an upper bound for the unprofiled fit; the busy time over
-   the plain fit's wall time gives the lower one.
+1. recorded alone: each span's calls, host and self milliseconds, the
+   host-sync sites by count, and the line of each synchronizing operation
+   that no site names;
+2. recorded under torch.profiler (CUDA activity), the device's kernels
+   shifted onto the spans' clock by a marker kernel launched right after a
+   `trace.clock()` stamp: each span's device milliseconds and the device's
+   idle milliseconds while it was the innermost open span, the share of
+   idle time in gaps during which a named site returned, the busy and idle
+   shares and device time by kernel. The profiler slows the host, so that
+   idle share is an upper bound for the unprofiled fit.
 
-Prints one line per measurement and a JSON object as its last line. It
-needs a card; it fails on a machine without one.
+Prints both span tables and a JSON object as its last line. It needs a
+card; it fails on a machine without one.
 """
 
 from __future__ import annotations
@@ -34,11 +34,12 @@ from __future__ import annotations
 import collections
 import json
 import sys
-import time
 import warnings
 
 import numpy as np
 import torch
+
+from autogp_tpu_torch.utils import trace
 
 
 def _series(n: int, skip: int):
@@ -81,104 +82,89 @@ def _fit(A, work, seed, **override):
     t, y, model_kw, fit_kw = work
     A.seed(seed)
     m = A.GPModel(t, y, **model_kw)
-    if "max_depth" in fit_kw:
-        A.fit_greedy(m, **fit_kw)
-    else:
-        A.fit_smc(m, **{**fit_kw, **override})
-    torch.cuda.synchronize()
+    with trace.span("fit"):
+        if "max_depth" in fit_kw:
+            A.fit_greedy(m, **fit_kw)
+        else:
+            A.fit_smc(m, **{**fit_kw, **override})
+        with trace.sync("fit.end"):
+            torch.cuda.synchronize()
     return m
+
+
+def _print_table(title, rows):
+    print(f"[{title}] {'span':28s} {'calls':>8s} {'host_ms':>11s} "
+          f"{'self_ms':>11s} {'device_ms':>11s} {'idle_ms':>11s} "
+          f"{'syncs':>6s} {'unnamed':>7s}", flush=True)
+    for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["self_ms"]):
+        print(f"[{title}] {name:28s} {r['calls']:8d} {r['host_ms']:11.3f} "
+              f"{r['self_ms']:11.3f} {r['device_ms']:11.3f} "
+              f"{r['idle_ms']:11.3f} {r['syncs']:6d} {r['unnamed']:7d}",
+              flush=True)
 
 
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
         sys.exit(1)
-    warnings.simplefilter("ignore")
     import autogp_tpu_torch as A
-    from autogp_tpu_torch.inference import greedy, hmc, smc
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     name = sys.argv[1] if len(sys.argv) > 1 else "config4"
     work = _workload(A, name)
-    _fit(A, work, seed=0, n_mcmc=1, n_hmc=1)      # warm-up
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _fit(A, work, seed=0, n_mcmc=1, n_hmc=1)      # warm-up
     out = {"workload": name, "device": torch.cuda.get_device_name(0)}
 
-    # 1. plain
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    m = _fit(A, work, seed=1)
-    ev[1].record()
-    ev[1].synchronize()
-    out["fit_ms"] = ev[0].elapsed_time(ev[1])
+    # 1. recorded alone
+    with trace.recording() as rec:
+        m = _fit(A, work, seed=1)
+    rows = rec.table()
+    out["fit_ms"] = rows["fit"]["host_ms"]
     out["round_stats"] = m.round_stats
-    print(f"[fit] {out['fit_ms']:.1f} ms; per round {m.round_stats}",
-          flush=True)
+    out["spans"] = rows
+    out["sites"] = rec.by_site()
+    out["unnamed_at"] = dict(collections.Counter(u[3] for u in rec.unnamed))
+    print(f"[fit] {out['fit_ms']:.1f} ms recorded; sites {out['sites']}; "
+          f"unnamed at {out['unnamed_at']}", flush=True)
+    _print_table("spans", rows)
 
-    # 2. host timers around the three pieces of a rejuvenation step
-    spent = collections.defaultdict(float)
-    calls = collections.Counter()
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
+    # 2. recorded under torch.profiler
+    marker = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
-            calls[name] += 1
-            return r
-        return wrapper
-    hooks = [(smc.moves, "tree_rejuvenation_step", "mh_step"),
-             (hmc, "params_trajectory", "param_trajectory"),
-             (hmc, "noise_trajectory", "noise_trajectory"),
-             (greedy, "_value_and_grad", "probe"),
-             (greedy, "enumerate_next_structures", "enumerate")]
-    saved = [getattr(mod, attr) for mod, attr, _ in hooks]
-    for (mod, attr, label), fn in zip(hooks, saved):
-        setattr(mod, attr, timed(label, fn))
-    t0 = time.perf_counter()
-    _fit(A, work, seed=1)
-    total = time.perf_counter() - t0
-    for (mod, attr, _), fn in zip(hooks, saved):
-        setattr(mod, attr, fn)
-    out["timed_fit_s"] = total
-    out["split_s"] = dict(spent)
-    out["calls"] = dict(calls)
-    print(f"[split] fit {total:.3f} s with synchronizing timers: " + ", ".join(
-        f"{k} {v:.3f} s in {calls[k]} calls ({v / calls[k] * 1e3:.2f} ms "
-        f"each)" for k, v in spent.items())
-        + f", rest {total - sum(spent.values()):.3f} s", flush=True)
-
-    # 3. torch.profiler
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _fit(A, work, seed=1)
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    # Kernel rows only: an op row's device time repeats its kernels'.
-    dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in avg if e.device_type == DeviceType.CUDA),
-                 key=lambda r: -r[1])
-    busy = sum(r[1] for r in dev)
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in avg), key=lambda r: -r[1])
-    out["profiled_wall_ms"] = wall * 1e3
+            host_ns = trace.clock()
+            marker.add_(1.0)
+            _fit(A, work, seed=1)
+    events = sorted((e.start_ns(), e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type().name == "CUDA")
+    offset = events[0][0] - host_ns
+    device = [(s - offset, s - offset + d) for s, d, _ in events[1:]]
+    rows = rec.table(device)
+    wall = rows["fit"]["host_ms"]
+    busy = sum(d for _, d, _ in events[1:]) * 1e-6
+    by_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for _, d, k in events[1:]:
+        by_kernel[k][0] += d * 1e-6
+        by_kernel[k][1] += 1
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    out["profiled_fit_ms"] = wall
     out["device_busy_ms"] = busy
-    out["idle_share"] = 1.0 - busy / (wall * 1e3)
-    out["idle_share_vs_plain_fit"] = 1.0 - busy / out["fit_ms"]
-    out["device_top"] = [list(r) for r in dev[:12]]
-    out["host_top"] = [list(r) for r in host[:12]]
-    out["kernel_launches"] = sum(r[2] for r in dev)
-    print(f"[profile] wall {wall * 1e3:.1f} ms (profiled), device busy "
-          f"{busy:.1f} ms, idle share {out['idle_share']:.4f} (against the "
-          f"plain fit's wall {out['idle_share_vs_plain_fit']:.4f}), "
+    out["idle_share"] = 1.0 - busy / wall
+    out["sync_idle_share"] = rec.sync_idle_share(device)
+    out["kernel_launches"] = len(events) - 1
+    out["device_top"] = [[k[:90], ms, n] for k, (ms, n) in top]
+    out["profiled_spans"] = rows
+    print(f"[profile] fit {wall:.1f} ms (profiled), device busy "
+          f"{busy:.1f} ms, idle share {out['idle_share']:.4f}, idle in "
+          f"gaps with a named sync's return {out['sync_idle_share']:.2f}%, "
           f"{out['kernel_launches']} device kernels", flush=True)
-    for k, ms, n in dev[:12]:
-        print(f"  device {ms:10.3f} ms {n:7d} x {k[:90]}", flush=True)
-    for k, ms, n in host[:12]:
-        print(f"  host   {ms:10.3f} ms {n:7d} x {k[:90]}", flush=True)
+    _print_table("profiled", rows)
+    for k, ms, n in out["device_top"]:
+        print(f"  device {ms:10.3f} ms {n:7d} x {k}", flush=True)
     print(json.dumps(out), flush=True)
 
 

@@ -994,3 +994,99 @@ def test_decompose_fragment_lmls_match_f64_cpu(cuda):
     fin = np.isfinite(want)
     assert np.isfinite(got[fin]).all()
     assert (np.abs(got[fin] - want[fin]) <= 1e-3 * np.abs(want[fin])).all()
+
+
+def _small_config4_fit(seed, record):
+    """Config 4's fit at 16 particles on a 256-point weekly series, rounds
+    at 64, 128, 192 and 256 points; inside a trace recording when
+    `record`."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    from autogp_tpu_torch.utils import trace
+    t = np.arange(256, dtype=np.float64)
+    y = (0.02 * t + 3.0 * np.sin(2 * np.pi * t / 52.0)
+         + 1.5 * np.sin(2 * np.pi * t / 13.0)
+         + 0.5 * np.random.default_rng(1).standard_normal(256))
+    A.seed(seed)
+    m = A.GPModel(t, y, n_particles=16,
+                  config=A.GPConfig(max_depth=-1, static_max_depth=5))
+    schedule = A.Schedule.linear_schedule(256, 0.25)
+    if not record:
+        A.fit_smc(m, schedule, 4, 4)
+        return m, None
+    with trace.recording() as rec:
+        A.fit_smc(m, schedule, 4, 4)
+    return m, rec
+
+
+def test_a_traced_fit_names_every_sync_and_keeps_its_bits(cuda):
+    """Under trace.recording() a fit on the card meets no synchronizing
+    operation outside a named trace.sync site, and its particles are the
+    untraced fit's bit for bit."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _small_config4_fit(3, record=False)           # warm-up
+        off, _ = _small_config4_fit(11, record=False)
+        on, rec = _small_config4_fit(11, record=True)
+    assert not rec.unnamed, sorted({u[3] for u in rec.unnamed})
+    sites = rec.by_site()
+    assert {"hmc.live", "smc.clock", "smc.round_stats"} <= set(sites)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    a, b = off.particles, on.particles
+    assert torch.equal(a.node_type, b.node_type)
+    for field in ("params", "lml", "log_weights", "noise_z"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def test_spans_share_the_device_timeline(cuda):
+    """A span holding only a device sleep, then one holding only a 50 ms
+    host sleep: benchmark/spans.py puts the device's idle time on the
+    second span (the spans' clock and the profiler's, aligned by the
+    marker kernel, agree)."""
+    import time
+    from benchmark import spans
+    from benchmark import trace as T
+    from autogp_tpu_torch.utils import trace
+    x = torch.zeros(1, device=cuda)
+    torch.cuda._sleep(1000)
+
+    def work():
+        with trace.recording() as rec:
+            with trace.span("device"):
+                torch.cuda._sleep(2_000_000)     # ~1 ms at 1.98 GHz
+            with trace.span("host"):
+                time.sleep(0.05)
+            with trace.span("after"):
+                x.add_(1.0)
+        return rec
+    rec, events, host_ns, _ = T.profile(work, cuda)
+    rows = rec.table(spans.on_host(events, host_ns))
+    assert 40.0 <= rows["host"]["idle_ms"] <= 60.0, rows
+    assert rows["after"]["idle_ms"] < 5.0 and rows["device"]["idle_ms"] < 5.0
+    # The device sleep starts once its launch returns: in either span.
+    assert rows["device"]["device_ms"] + rows["host"]["device_ms"] > 0.2
+
+
+def test_sync_idle_share_puts_a_forced_wait_on_its_site(cuda):
+    """A synchronize at a named site, then a 50 ms host sleep before the
+    next launch: the device's idle time is almost all in the gap during
+    which that site returned."""
+    import time
+    from benchmark import spans
+    from benchmark import trace as T
+    from autogp_tpu_torch.utils import trace
+    x = torch.zeros(1024, device=cuda)
+
+    def work():
+        with trace.recording() as rec:
+            for _ in range(3):
+                x.mul_(1.0)
+            with trace.sync("forced"):
+                torch.cuda.synchronize()
+            time.sleep(0.05)
+            x.add_(1.0)
+        return rec
+    rec, events, host_ns, _ = T.profile(work, cuda)
+    device = spans.on_host(events, host_ns)
+    assert rec.by_site() == {"forced": 1}
+    assert rec.sync_idle_share(device) > 90.0
