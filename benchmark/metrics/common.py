@@ -9,7 +9,8 @@ for want of a reading.
 "family_s" (device seconds of each kernel family), the recorded pass's
 "timers" ({label: {"seconds", "calls"}}) and "least_s" (least seconds of
 each family's launches on the chip, `cost.py`), and "family_ok" (the
-passes made the same launches, all of them profiled).
+recorded pass's launches of the family, CUDA graph replays included, are
+the launches of its main kernel that the profiled pass counted).
 """
 
 FAMILIES = ("cov_tape", "chol_panel", "kinv", "cov_tape_bwd")

@@ -12,8 +12,11 @@ taken on the host clock. `--trace 1` instead runs the cell's unit twice
 from the same seed and state: once under torch.profiler (device time by
 kernel, launches, busy and idle time) and once with the benchmark's
 recorders (synchronising layer timers, the kernels' operation and byte
-counts); the per-layer readers in `metrics/` turn both into the cell's
-per-layer metrics.
+counts, each launch counted every time the device runs it, CUDA graph
+replays included); the per-layer readers in `metrics/` turn both into
+the cell's per-layer metrics. A kernel family's roofline is read only
+where the recorded launches of pass B are the profiled launches of pass
+A (`families_ok`).
 
 Every run then checks what its timed path produced against the plain
 reference (`check.py`), prints each number compared beside its limit as
@@ -300,23 +303,33 @@ def traced(unit, traffic, seconds, device, picker):
         sync()
         picker.see(index, record, time.perf_counter() - t0, keep.take())
     count2 = R.read_counters()
-    for w in (timers, costs, keep):
+    for w in (keep, costs, timers):
         w.close()
     missing = sorted(set(timers.missing + costs.missing + keep.missing
                          + labels.missing))
     if missing:
         log(f"[trace] not found, their metrics left out: {missing}")
+    if timers.dropped:
+        log(f"[trace] calls inside a CUDA graph capture, left out of their "
+            f"timers: {dict(timers.dropped)}")
+    if costs.unseen:
+        log(f"[trace] CUDA graphs replayed whose capture no recorder saw, "
+            f"so no family's launches can be counted: "
+            f"{sorted(set(costs.unseen))}")
     least = costs.least_seconds()
-    fam_ok = {}
-    for fam, (kernels, main) in FAMILY_KERNELS.items():
+    profiled = (red or {}).get("kernel_launches", {})
+    fam_ok = families_ok(costs.launches, costs.unseen, profiled)
+    for fam, (_, main) in FAMILY_KERNELS.items():
+        # The program's own counters count its Python calls, not what a
+        # graph replays: logged beside the gate, not part of it.
         a = None if count0[fam] is None else count1[fam] - count0[fam]
         b = None if count1[fam] is None else count2[fam] - count1[fam]
-        seen = (red or {}).get("kernel_launches", {}).get(main, 0)
-        fam_ok[fam] = (a is not None and a == b == costs.launches[fam]
-                       and a == seen and a > 0)
-        if not fam_ok[fam] and a:
-            log(f"[trace] {fam}: launches pass A {a}, pass B {b}, recorded "
-                f"{costs.launches[fam]}, profiled {seen}: no roofline")
+        seen = profiled.get(main, 0)
+        agree = fam_ok[fam] and a == b == costs.launches[fam]
+        if not agree and (a or seen or costs.launches[fam]):
+            log(f"[trace] {fam}: program counters pass A {a}, pass B {b}; "
+                f"recorded {costs.launches[fam]}, profiled {seen}"
+                + ("" if fam_ok[fam] else ": no roofline"))
     kernel_s = (red or {}).get("kernel_s", {})
     out = {
         "kind": traffic["kind"], "units": k, "wall_s": wall,
@@ -327,7 +340,7 @@ def traced(unit, traffic, seconds, device, picker):
         "family_s": {f: sum(kernel_s.get(n, 0.0) for n in ks)
                      for f, (ks, _) in FAMILY_KERNELS.items()},
         "family_ok": fam_ok, "least_s": least,
-        "factor_ok": costs.launches["factor"] > 0,
+        "factor_ok": costs.launches["factor"] > 0 and not costs.unseen,
         "timers": {lab: {"seconds": timers.seconds[lab],
                          "calls": timers.calls[lab]}
                    for lab in timers.calls},
@@ -336,6 +349,15 @@ def traced(unit, traffic, seconds, device, picker):
     log("[trace] " + json.dumps({k2: v for k2, v in out.items()
                                  if k2 != "breakdown"}))
     return out, k
+
+
+def families_ok(launches, unseen, profiled) -> dict:
+    """{family: whether its launches can be read}: the recorder's launches
+    of pass B, replays included, equal the launches of the family's main
+    kernel that torch.profiler counted in pass A, and both are above 0,
+    with no graph replayed whose capture the recorder did not see."""
+    return {fam: not unseen and launches[fam] == profiled.get(main, 0) > 0
+            for fam, (_, main) in FAMILY_KERNELS.items()}
 
 
 def device_info(device, out) -> dict:
