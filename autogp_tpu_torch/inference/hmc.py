@@ -23,6 +23,15 @@ particle. Each sweep's gradients take the partition of the batch the
 unsharded program runs (its live particles over all ranks, or all P
 without compaction: `part_batch` of model.lml), so a particle's
 trajectory is the same bits in any shard.
+
+A trajectory's L + 1 leapfrogs run one body on buffers of the
+trajectory. Its shapes, tree and step stay fixed from leapfrog 1 on, so
+on the card a trajectory on heaps that bound their own tapes, in a
+bucket of the closed-form gradient (`_use_graph`), captures leapfrog 1
+as a CUDA graph and replays it L times: one eager leapfrog and one
+capture of host work in place of L + 1, the same launches and bits.
+Spans: `hmc.leapfrog` around each leapfrog, with `hmc.capture` and
+`hmc.replay` inside it.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from autogp_tpu_torch import config as C
 from autogp_tpu_torch import gp_math
 from autogp_tpu_torch import model as M
 from autogp_tpu_torch import tree as T
+from autogp_tpu_torch.ops import chol, cov, cov_vjp, kinv
 from autogp_tpu_torch.utils import trace
 
 
@@ -57,6 +67,94 @@ def _accept(u0, u1, p_sq, mom_sq, u):
     return (torch.log(u) < -dh) & torch.isfinite(dh)
 
 
+def _use_graph(node_type, ts) -> bool:
+    """Whether a trajectory on heaps node_type [P, M] and the time grid ts
+    [N] replays its leapfrog as a CUDA graph: ts on a CUDA device, heaps
+    of at most cov.SMALL_HEAP slots, whose tapes size the kernels without
+    a read-back (ops/cov.py), and a bucket whose gradient takes the
+    closed-form K^-1 (gp_math.use_blocked_inv). The other buckets' dense
+    gradient solves with torch.cholesky_solve, whose batched MAGMA path
+    allocates inside a capture and aborts the process (torch 2.11, H100).
+    Elsewhere every leapfrog runs eagerly."""
+    return (ts.is_cuda and node_type.shape[1] <= cov.SMALL_HEAP
+            and gp_math.use_blocked_inv(ts.shape[0]))
+
+
+# The ops' launch counters: each counts a replay's launches as the eager
+# call's.
+_COUNTERS = tuple((mod, name) for mod in (cov, chol, kinv, cov_vjp)
+                  for name, v in vars(mod).items()
+                  if name.endswith("launches") and isinstance(v, int))
+# By device index: the side stream captures run on, the memory pool they
+# share, each made once, and the last graph captured. torch lets a pool go
+# with the last graph that uses it, and a capture into it then fails (torch
+# 2.11, H100): the last graph, never replayed again, keeps it until the
+# next capture has taken it.
+_side_streams = {}
+_pools = {}
+_last_graphs = {}
+
+
+def _capture(fn, device):
+    """(graph, counts): a CUDA graph of `fn()`, captured on the device's
+    side stream into its shared pool (no sync, no cache emptied), and the
+    launch counts of one replay. The capture itself launches nothing, so
+    the counters are left as they were."""
+    i = device.index
+    if i not in _side_streams:
+        _side_streams[i] = torch.cuda.Stream(device)
+        _pools[i] = torch.cuda.graph_pool_handle()
+    side, caller = _side_streams[i], torch.cuda.current_stream(device)
+    before = [getattr(mod, name) for mod, name in _COUNTERS]
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=_pools[i])
+        try:
+            fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass            # the capture fn broke: its error is raised
+            raise
+        graph.capture_end()
+    caller.wait_stream(side)
+    _last_graphs[i] = graph
+    counts = []
+    for (mod, name), n in zip(_COUNTERS, before):
+        counts.append(getattr(mod, name) - n)
+        setattr(mod, name, n)
+    return graph, counts
+
+
+def _leapfrogs(leapfrog, u, eps: float, L: int, graphed: bool):
+    """Run `leapfrog(e)`, which updates its trajectory's buffers in place
+    and writes the energy into `u`, once with e = 0 and then L times with
+    e = eps; return the energy after the first (the initial U). Graphed,
+    the L leapfrogs are L replays of one CUDA graph of `leapfrog(eps)`,
+    captured in the first of them and never replayed after; each replay
+    is the eager leapfrog's launches on the same buffers, bit for bit."""
+    with trace.span("hmc.leapfrog"):
+        leapfrog(0.0)
+    u0 = u.clone()
+    graph = None
+    for _ in range(L):
+        with trace.span("hmc.leapfrog"):
+            if not graphed:
+                leapfrog(eps)
+                continue
+            if graph is None:
+                with trace.span("hmc.capture"):
+                    graph, counts = _capture(lambda: leapfrog(eps),
+                                             u.device)
+            with trace.span("hmc.replay"):
+                graph.replay()
+            for (mod, name), n in zip(_COUNTERS, counts):
+                setattr(mod, name, getattr(mod, name) + n)
+    return u0
+
+
 def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
                       cfg: C.GPConfig, tables, eps: float, L: int, mom0, u,
                       part_batch=None):
@@ -67,11 +165,14 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
 
     Iteration 0 runs the leapfrog body with step 0, which reduces it to
     the initial U and gradient at q0; the last iteration's U is the
-    endpoint energy (hmc.py:69-93)."""
+    endpoint energy (hmc.py:69-93). Each leapfrog gives the gradient
+    call a fresh q and keeps q, p, the gradient, U and the LML in
+    buffers of the trajectory, so that on the card (`_use_graph`) the
+    last L leapfrogs replay one CUDA graph."""
     ts, xs, mask = data
 
     def value_and_grad(q):
-        with trace.span("hmc.leapfrog"), torch.enable_grad():
+        with torch.enable_grad():
             q = q.detach().requires_grad_(True)
             lml = M.lml(node_type, q, noise_z, ts, xs, mask, cfg, tables,
                         part_batch=part_batch)
@@ -80,18 +181,20 @@ def params_trajectory(node_type, params_z, noise_z, lml_cached, data,
                 (g,) = torch.autograd.grad(u_q.sum(), q)
         return u_q.detach(), lml.detach(), g * pmask
 
+    def leapfrog(e):
+        p.sub_(0.5 * e * g)
+        q_new = q + e * p * pmask
+        for buf, v in zip((q, u_q, lml, g),
+                          (q_new, *value_and_grad(q_new))):
+            buf.copy_(v)
+        p.sub_(0.5 * e * g)
+
     with trace.span("hmc.params_trajectory"):
         pmask = T.param_mask(node_type).to(params_z.dtype)
-        q, p = params_z, mom0
+        q, p = params_z.clone(), mom0.clone()
         g = torch.zeros_like(params_z)
-        for i in range(L + 1):
-            e = 0.0 if i == 0 else eps
-            p = p - 0.5 * e * g
-            q = q + e * p * pmask
-            u_q, lml, g = value_and_grad(q)
-            p = p - 0.5 * e * g
-            if i == 0:
-                u0 = u_q
+        u_q, lml = torch.empty_like(lml_cached), torch.empty_like(lml_cached)
+        u0 = _leapfrogs(leapfrog, u_q, eps, L, _use_graph(node_type, ts))
         accept = _accept(u0, u_q, gp_math.row_sum(p * p, dim=(-2, -1)),
                          gp_math.row_sum(mom0 * mom0, dim=(-2, -1)), u)
         return (torch.where(accept[:, None, None], q, params_z),
@@ -107,37 +210,39 @@ def noise_trajectory(node_type, params_z, noise_z, lml_cached, data,
 
     For power-of-two buckets >= 64 the noise-free gram K0 is assembled
     once and every leapfrog pays the factorization and the kinv
-    statistics only (hmc.py:96-156)."""
+    statistics only (hmc.py:96-156). The leapfrogs keep their state as
+    `params_trajectory`'s do, and replay one CUDA graph on the card."""
     ts, xs, mask = data
     use_k0 = gp_math.use_blocked_inv(ts.shape[0])
 
     def value_and_grad(nz):
-        with trace.span("hmc.leapfrog"):
-            if use_k0:
-                lml, glml = M.lml_value_and_noise_grad_from_K0(K0, nz, xs,
-                                                               mask, cfg)
-            else:
-                lml, glml = M.lml_value_and_noise_grad(
-                    node_type, params_z, nz, ts, xs, mask, cfg, tables,
-                    part_batch=part_batch)
-            u_q = -(lp_params + M.normal_logpdf(nz) + lml)
-            return u_q, lml, -(-nz + glml)
+        if use_k0:
+            lml, glml = M.lml_value_and_noise_grad_from_K0(K0, nz, xs,
+                                                           mask, cfg)
+        else:
+            lml, glml = M.lml_value_and_noise_grad(
+                node_type, params_z, nz, ts, xs, mask, cfg, tables,
+                part_batch=part_batch)
+        u_q = -(lp_params + M.normal_logpdf(nz) + lml)
+        return u_q, lml, -(-nz + glml)
+
+    def leapfrog(e):
+        p.sub_(0.5 * e * g)
+        q_new = q + e * p
+        for buf, v in zip((q, u_q, lml, g),
+                          (q_new, *value_and_grad(q_new))):
+            buf.copy_(v)
+        p.sub_(0.5 * e * g)
 
     with trace.span("hmc.noise_trajectory"):
         pmask = T.param_mask(node_type).to(params_z.dtype)
         lp_params = _lp_params(params_z, pmask)
         K0 = (M.assemble_K0(node_type, params_z, ts, mask, cfg, tables)
               if use_k0 else None)
-        q, p = noise_z, mom0
+        q, p = noise_z.clone(), mom0.clone()
         g = torch.zeros_like(noise_z)
-        for i in range(L + 1):
-            e = 0.0 if i == 0 else eps
-            p = p - 0.5 * e * g
-            q = q + e * p
-            u_q, lml, g = value_and_grad(q)
-            p = p - 0.5 * e * g
-            if i == 0:
-                u0 = u_q
+        u_q, lml = torch.empty_like(lml_cached), torch.empty_like(lml_cached)
+        u0 = _leapfrogs(leapfrog, u_q, eps, L, _use_graph(node_type, ts))
         accept = _accept(u0, u_q, p * p, mom0 * mom0, u)
         return (torch.where(accept, q, noise_z),
                 torch.where(accept, lml, lml_cached), accept)

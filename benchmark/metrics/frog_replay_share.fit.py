@@ -1,0 +1,9 @@
+"""frog_replay_share.fit: Percent of the profiled fit's HMC leapfrogs
+(hmc.leapfrog under hmc.params_trajectory or hmc.noise_trajectory) that
+replayed a CUDA graph (hold an hmc.replay span)."""
+
+from benchmark.metrics.replays import replay_share
+
+
+def read(trace):
+    return replay_share(trace, "fit")

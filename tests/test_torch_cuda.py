@@ -1090,3 +1090,162 @@ def test_sync_idle_share_puts_a_forced_wait_on_its_site(cuda):
     device = spans.on_host(events, host_ns)
     assert rec.by_site() == {"forced": 1}
     assert rec.sync_idle_share(device) > 90.0
+
+
+def _hmc_inputs(dev, P, N, seed, depth=None):
+    """A config-4 batch of P trees from the prior, with noise and LMLs, on
+    an N-point bucket with its last quarter padded, and one trajectory's
+    draws: (node_type, params_z, noise_z, lml, data, cfg, tables,
+    (param momenta, noise momenta, uniforms))."""
+    from autogp_tpu_torch import tree as TT
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = C.GPConfig() if depth is None else C.GPConfig(max_depth=depth)
+    tab = TM.prior_tables(cfg, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nt, pz = TM.sample_tree(gen, P, tab, torch.float32, dev)
+    nz = torch.randn(P, generator=gen, device=dev)
+    ts = torch.linspace(0.0, 1.0, N, device=dev)
+    mask = (torch.arange(N, device=dev) < 3 * N // 4).float()
+    xs = (torch.sin(12.0 * ts) + 0.1 * torch.randn(
+        N, generator=gen, device=dev)) * mask
+    lml = TM.lml(nt, pz, nz, ts, xs, mask, cfg, tab)
+    draws = (torch.randn(pz.shape, generator=gen, device=dev)
+             * TT.param_mask(nt), torch.randn(P, generator=gen, device=dev),
+             torch.rand(P, generator=gen, device=dev))
+    return nt, pz, nz, lml, (ts, xs, mask), cfg, tab, draws
+
+
+def _trajectory(kind, inputs, eps=0.02, L=10):
+    """One parameter or noise trajectory on `inputs`, and the ops' launch
+    counters it advanced."""
+    from autogp_tpu_torch.inference import hmc
+    nt, pz, nz, lml, data, cfg, tab, (mom_p, mom_n, u) = inputs
+    before = [getattr(m, a) for m, a in hmc._COUNTERS]
+    if kind == "params":
+        out = hmc.params_trajectory(nt, pz, nz, lml, data, cfg, tab, eps, L,
+                                    mom_p, u, part_batch=nt.shape[0])
+    else:
+        out = hmc.noise_trajectory(nt, pz, nz, lml, data, cfg, tab, eps, L,
+                                   mom_n, u, part_batch=nt.shape[0])
+    torch.cuda.synchronize()
+    return out, [getattr(m, a) - b for (m, a), b in zip(hmc._COUNTERS,
+                                                           before)]
+
+
+def _eager_and_graphed(monkeypatch, kind, inputs):
+    from autogp_tpu_torch.inference import hmc
+    assert hmc._use_graph(inputs[0], inputs[4][0])
+    with monkeypatch.context() as m:
+        m.setattr(hmc, "_use_graph", lambda *a: False)
+        eager = _trajectory(kind, inputs)
+    return eager, _trajectory(kind, inputs)
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("P,N", [(8, 256), (64, 1024), (16, 64)])
+def test_graphed_params_trajectory_is_the_eager_one_bitwise(
+        cuda, monkeypatch, P, N):
+    """A parameter trajectory whose last 10 leapfrogs replay one CUDA graph
+    gives the eager trajectory's q, LMLs and accept decisions bit for bit
+    (the fused gradient route)."""
+    inputs = _hmc_inputs(cuda, P, N, seed=N + P)
+    (eager, _), (graphed, _) = _eager_and_graphed(monkeypatch, "params",
+                                                  inputs)
+    _assert_bitwise(eager, graphed)
+    assert bool(torch.isfinite(graphed[1]).any())
+
+
+@pytest.mark.parametrize("P,N", [(8, 256), (64, 1024)])
+def test_graphed_noise_trajectory_is_the_eager_one_bitwise(cuda,
+                                                          monkeypatch, P, N):
+    """The same for a noise trajectory, K0 assembled once."""
+    inputs = _hmc_inputs(cuda, P, N, seed=N + 1)
+    (eager, _), (graphed, _) = _eager_and_graphed(monkeypatch, "noise",
+                                                  inputs)
+    _assert_bitwise(eager, graphed)
+    assert bool(torch.isfinite(graphed[1]).any())
+
+
+@pytest.mark.parametrize("kind", ["params", "noise"])
+def test_graphed_trajectory_counts_every_replayed_launch(cuda, monkeypatch,
+                                                         kind):
+    """The ops' launch counters advance by a graphed trajectory as by the
+    eager one: each replay adds what the eager leapfrog launches."""
+    inputs = _hmc_inputs(cuda, 8, 256, seed=5)
+    (_, eager), (_, graphed) = _eager_and_graphed(monkeypatch, kind, inputs)
+    assert graphed == eager
+    assert sum(graphed) > 0
+
+
+@pytest.mark.parametrize("kind", ["params", "noise"])
+@pytest.mark.parametrize("depth,N", [(10, 64), (None, 32)],
+                         ids=["1023-slot-heap", "dense-32"])
+def test_trajectories_the_graph_bypasses_run_eagerly(cuda, monkeypatch,
+                                                     kind, depth, N):
+    """A 1023-slot heap (depth cap 10), whose tapes' maxima are read back,
+    and the 32-point bucket, whose dense gradient calls
+    torch.cholesky_solve (MAGMA's batched path cannot be captured), run
+    every leapfrog eagerly: no capture, no replay, the eager bits."""
+    from autogp_tpu_torch.inference import hmc
+    from autogp_tpu_torch.utils import trace
+    inputs = _hmc_inputs(cuda, 8, N, seed=9, depth=depth)
+    assert not hmc._use_graph(inputs[0], inputs[4][0])
+    with trace.recording() as rec:
+        out, _ = _trajectory(kind, inputs)
+    names = [s[0] for s in rec.spans]
+    assert names.count("hmc.leapfrog") == 11
+    assert "hmc.replay" not in names and "hmc.capture" not in names
+    with monkeypatch.context() as m:
+        m.setattr(hmc, "_use_graph", lambda *a: False)
+        _assert_bitwise(out, _trajectory(kind, inputs)[0])
+
+
+@pytest.mark.parametrize("kind", ["params", "noise"])
+def test_a_traced_graphed_trajectory_syncs_nowhere_in_a_leapfrog(cuda,
+                                                                 kind):
+    """Under trace.recording(): leapfrog 0 eager, the next holds the
+    capture and a replay, the other nine a replay each, and no
+    synchronizing operation is met inside any leapfrog."""
+    from autogp_tpu_torch.utils import trace
+    inputs = _hmc_inputs(cuda, 8, 256, seed=13)
+    _trajectory(kind, inputs)                           # warm-up
+    with trace.recording() as rec:
+        _trajectory(kind, inputs)
+    spans = rec.spans
+    frogs = [i for i, s in enumerate(spans) if s[0] == "hmc.leapfrog"]
+    inside = {}
+    for s in spans:
+        if s[3] in frogs and s[0] in ("hmc.capture", "hmc.replay"):
+            inside.setdefault(s[3], []).append(s[0])
+    assert len(frogs) == 11
+    assert [inside.get(i) for i in frogs] == (
+        [None, ["hmc.capture", "hmc.replay"]] + [["hmc.replay"]] * 9)
+    assert not rec.unnamed, rec.unnamed
+
+    def under_a_frog(i):
+        while i >= 0:
+            if spans[i][0] == "hmc.leapfrog":
+                return True
+            i = spans[i][3]
+        return False
+    assert not [s for s in rec.syncs if under_a_frog(s[3])]
+
+
+def test_graphed_trajectories_share_one_pool(cuda):
+    """20 graphed trajectories at [64, 1024] hold no more reserved memory
+    than 2 did, within 10%: the graphs share one pool, and only the last
+    graph outlives its trajectory."""
+    inputs = _hmc_inputs(cuda, 64, 1024, seed=21)
+    for _ in range(2):
+        _trajectory("params", inputs)
+        _trajectory("noise", inputs)
+    two = torch.cuda.memory_reserved(cuda)
+    for _ in range(18):
+        _trajectory("params", inputs)
+        _trajectory("noise", inputs)
+    assert torch.cuda.memory_reserved(cuda) <= 1.1 * two
