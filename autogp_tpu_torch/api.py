@@ -9,7 +9,8 @@ optional per-round callback; `mcmc_structure`, `fit_mcmc` and
 points; `predict` returns per-particle predictive means and quantiles in
 the original data space, `predict_mvn` the mixture with full covariances,
 `predict_quantile` the mixture's marginal quantiles and `predict_proba`
-the per-particle log density of held-out values; `to_dict` / `from_dict`
+the per-particle log density of held-out values, each computed in float64
+on the model's device whatever the model's dtype; `to_dict` / `from_dict`
 use the dict format of autogp_tpu.api.to_dict (:916-993), so a model
 fitted by the JAX package can be carried over and back.
 
@@ -151,6 +152,7 @@ class GPModel:
                                else torch.float64)
         self.config = config or GPConfig()
         self.tables = M.prior_tables(self.config, self.device, self.dtype)
+        self._tables64 = None
         self.ds = np.asarray(ds)
         self.y = np.asarray(y, dtype=np.float64)
         self.ds_transform = TR.LinearTransform.from_minmax(
@@ -174,6 +176,7 @@ class GPModel:
         m.dtype = particles.params.dtype
         m.config = config
         m.tables = M.prior_tables(config, m.device, m.dtype)
+        m._tables64 = None
         m.ds = np.asarray(ds)
         m.y = np.asarray(y, dtype=np.float64)
         m.ds_transform, m.y_transform = ds_transform, y_transform
@@ -209,19 +212,50 @@ class GPModel:
         """A per-particle tensor of the rank's rows, over the whole batch."""
         return x if self.mesh is None else self.mesh.gather(x)
 
+    # -- the posteriors' float64 route (the predict family) ----------------
+
+    def _posterior_batch(self):
+        """(node_type, params_t, noise) of the whole batch in float64, the
+        dtype of every posterior: a model below float64 casts its
+        whitened parameters and noise (exactly) and transforms them with
+        float64 prior tables, made once a model. The stored particles are
+        only read."""
+        f64 = torch.float64
+        if self.dtype == f64:
+            tables = self.tables
+        else:
+            if self._tables64 is None:
+                self._tables64 = M.prior_tables(self.config, self.device, f64)
+            tables = self._tables64
+        p = self._all()
+        return (p.node_type,
+                M.transform_params(p.node_type, p.params.to(f64), tables),
+                M.transform_noise(p.noise_z.to(f64), self.config))
+
+    def _posterior_dataset(self) -> smc.Dataset:
+        return smc.make_dataset(self._ds_numeric(), self._y_numeric(),
+                                dtype=torch.float64, device=self.device)
+
+    def _times64(self, ds) -> torch.Tensor:
+        """Query times in model space, float64 on the model's device."""
+        with trace.sync("api.query"):
+            return torch.as_tensor(self._ds_numeric(ds), dtype=torch.float64,
+                                   device=self.device)
+
     def _train_factor(self):
-        """Per-particle (L, alpha) of the training block over the whole
-        batch, cached until the next state change (autogp_tpu/api.py:
+        """Per-particle float64 (L, alpha) of the training block over the
+        whole batch, cached until the next state change (autogp_tpu/api.py:
         145-164)."""
-        if self._train_factor_cache is None:
-            data = self._dataset()
-            p = self._all()
-            params_t = M.transform_params(p.node_type, p.params, self.tables)
-            noise = M.transform_noise(p.noise_z, self.config)
+        if self._train_factor_cache is not None:
+            with trace.span("predict.factor_cached"):
+                return self._train_factor_cache
+        with trace.span("predict.factor"):
+            data = self._posterior_dataset()
+            node_type, params_t, noise = self._posterior_batch()
             self._train_factor_cache = gp_math.train_cholesky_masked(
-                p.node_type, params_t, noise, data.ts, data.xs, data.mask,
+                node_type, params_t, noise, data.ts, data.xs, data.mask,
                 self.tables.depth_cap)
-        return self._train_factor_cache
+            return self._train_factor_cache
 
     def _ds_numeric(self, ds=None) -> np.ndarray:
         return self.ds_transform.apply(to_numeric(self.ds if ds is None
@@ -247,8 +281,9 @@ class GPModel:
                                              else self.mesh.size)
 
     def particle_weights(self) -> np.ndarray:
-        return smc.normalized_weights(
-            self._all().log_weights).cpu().numpy().astype(np.float64)
+        w = smc.normalized_weights(self._all().log_weights)
+        with trace.sync("api.weights"):
+            return w.cpu().numpy().astype(np.float64)
 
     def effective_sample_size(self) -> float:
         return float(smc.effective_sample_size(self._all().log_weights))
@@ -464,26 +499,31 @@ def maybe_resample(model: GPModel, ess_threshold: float) -> bool:
 
 # ---------------------------------------------------------------------------
 # predict (api.jl:633-661; autogp_tpu/api.py:531-587)
+#
+# Every posterior is computed in float64 on the model's device, whatever
+# the model's dtype: a float32 gram's cancellations (var = Kpp + noise -
+# colsum(V^2), the joint factor's trailing block) gave NaN and far-off
+# forecasts on the card for particles with finite LMLs. Kernel 1's float64
+# entry assembles the blocks and ops/chol.py's float64 route factors them;
+# a float64 model (the CPU's default) runs what it always ran.
 # ---------------------------------------------------------------------------
 
 def _posterior_summary_all(model: GPModel, ds_pred,
                            noise_pred: Optional[float]):
     """Per-particle posterior marginals (mu, std) at ds_pred, model space,
     as float64 numpy [P, p]."""
-    data = model._dataset()
-    p = model._all()
-    tsp = torch.as_tensor(model._ds_numeric(ds_pred), dtype=model.dtype,
-                          device=model.device)
     L, alpha = model._train_factor()
-    params_t = M.transform_params(p.node_type, p.params, model.tables)
-    np_eff = (M.transform_noise(p.noise_z, model.config)
-              if noise_pred is None
-              else torch.full_like(p.noise_z, float(noise_pred)))
-    mus, stds = gp_math.posterior_marginals_from_factor(
-        p.node_type, params_t, L, alpha, data.mask, data.ts, tsp, np_eff,
-        model.tables.depth_cap)
-    return (mus.cpu().numpy().astype(np.float64),
-            stds.cpu().numpy().astype(np.float64))
+    with trace.span("predict.marginals"):
+        data = model._posterior_dataset()
+        tsp = model._times64(ds_pred)
+        node_type, params_t, noise = model._posterior_batch()
+        np_eff = (noise if noise_pred is None
+                  else torch.full_like(noise, float(noise_pred)))
+        mus, stds = gp_math.posterior_marginals_from_factor(
+            node_type, params_t, L, alpha, data.mask, data.ts, tsp, np_eff,
+            model.tables.depth_cap)
+        with trace.sync("api.moments"):
+            return mus.cpu().numpy(), stds.cpu().numpy()
 
 
 def predict(model: GPModel, ds, quantiles: Sequence[float] = (),
@@ -495,52 +535,53 @@ def predict(model: GPModel, ds, quantiles: Sequence[float] = (),
     quantiles = list(quantiles)
     if not all(0 <= q <= 1 for q in quantiles):
         raise ValueError("Quantiles must be in [0,1]")
-    mus, stds = _posterior_summary_all(model, ds, noise_pred)
-    weights = model.particle_weights()
-    frames = []
-    nq = len(ds)
-    for i in range(model.num_particles):
-        rec = {
-            "ds": np.asarray(ds),
-            "particle": np.full(nq, i + 1),
-            "weight": np.full(nq, weights[i]),
-            "y_mean": model.y_transform.unapply(mus[i]),
-        }
-        for q in quantiles:
-            rec[f"y_{q}"] = model.y_transform.unapply(
-                _norm.ppf(q, loc=mus[i], scale=stds[i]))
-        frames.append(pd.DataFrame(rec))
-    return pd.concat(frames, ignore_index=True)
+    with trace.unit("api.predict"):
+        mus, stds = _posterior_summary_all(model, ds, noise_pred)
+        weights = model.particle_weights()
+        with trace.span("predict.frame"):
+            frames = []
+            nq = len(ds)
+            for i in range(model.num_particles):
+                rec = {
+                    "ds": np.asarray(ds),
+                    "particle": np.full(nq, i + 1),
+                    "weight": np.full(nq, weights[i]),
+                    "y_mean": model.y_transform.unapply(mus[i]),
+                }
+                for q in quantiles:
+                    rec[f"y_{q}"] = model.y_transform.unapply(
+                        _norm.ppf(q, loc=mus[i], scale=stds[i]))
+                frames.append(pd.DataFrame(rec))
+            return pd.concat(frames, ignore_index=True)
 
 
 def _posterior_terms(model: GPModel, ds_pred):
-    """What the joint-Cholesky posteriors take: (node_type, params_t,
-    noise, ts, xs, mask, ts_pred, depth_cap)."""
-    data = model._dataset()
-    p = model._all()
-    tsp = torch.as_tensor(model._ds_numeric(ds_pred), dtype=model.dtype,
-                          device=model.device)
-    return (p.node_type, M.transform_params(p.node_type, p.params,
-                                            model.tables),
-            M.transform_noise(p.noise_z, model.config), data.ts, data.xs,
-            data.mask, tsp, model.tables.depth_cap)
+    """What the joint-Cholesky posteriors take, in float64: (node_type,
+    params_t, noise, ts, xs, mask, ts_pred, depth_cap)."""
+    data = model._posterior_dataset()
+    return (*model._posterior_batch(), data.ts, data.xs, data.mask,
+            model._times64(ds_pred), model.tables.depth_cap)
 
 
 def predict_mvn(model: GPModel, ds, noise_pred: Optional[float] = None
                 ) -> MixtureMvNormal:
     """Posterior predictive mixture in the original data space, one
     component with its full covariance per particle (api.jl:482-545)."""
-    *terms, depth_cap = _posterior_terms(model, ds)
-    np_pred = (None if noise_pred is None
-               else torch.full_like(model._all().noise_z,
-                                    float(noise_pred)))
-    mus, covs = gp_math.posterior_mvn_masked(*terms, depth_cap,
-                                             noise_pred=np_pred)
-    mus = mus.cpu().numpy().astype(np.float64)
-    covs = covs.cpu().numpy().astype(np.float64)
-    comps = [MvNormal(*model.y_transform.unapply_mean_var(mus[i], covs[i]))
-             for i in range(model.num_particles)]
-    return MixtureMvNormal(comps, model.particle_weights())
+    with trace.unit("api.predict_mvn"):
+        with trace.span("predict.marginals"):
+            *terms, depth_cap = _posterior_terms(model, ds)
+            np_pred = (None if noise_pred is None
+                       else torch.full_like(terms[2], float(noise_pred)))
+            mus, covs = gp_math.posterior_mvn_masked(*terms, depth_cap,
+                                                     noise_pred=np_pred)
+            with trace.sync("api.moments"):
+                mus, covs = mus.cpu().numpy(), covs.cpu().numpy()
+        weights = model.particle_weights()
+        with trace.span("predict.frame"):
+            comps = [MvNormal(*model.y_transform.unapply_mean_var(mus[i],
+                                                                  covs[i]))
+                     for i in range(model.num_particles)]
+            return MixtureMvNormal(comps, weights)
 
 
 def predict_quantile(model: GPModel, ds, q: float,
@@ -551,11 +592,15 @@ def predict_quantile(model: GPModel, ds, q: float,
     on `predict`'s per-particle (mu, std) and the cached train factor."""
     if not (0 < q < 1):
         raise ValueError("Quantile must be in (0,1).")
-    mus, stds = _posterior_summary_all(model, ds, noise_pred)
-    mean_o, var_o = model.y_transform.unapply_mean_var(mus, stds ** 2)
-    return mixture_marginal_quantile(model.particle_weights(), mean_o,
-                                     np.sqrt(var_o), q, tol=tol,
-                                     max_iter=max_iter)
+    with trace.unit("api.predict_quantile"):
+        mus, stds = _posterior_summary_all(model, ds, noise_pred)
+        weights = model.particle_weights()
+        with trace.span("predict.frame"):
+            mean_o, var_o = model.y_transform.unapply_mean_var(mus,
+                                                               stds ** 2)
+            return mixture_marginal_quantile(weights, mean_o,
+                                             np.sqrt(var_o), q, tol=tol,
+                                             max_iter=max_iter)
 
 
 def predict_proba(model: GPModel, ds, y) -> pd.DataFrame:
@@ -565,20 +610,27 @@ def predict_proba(model: GPModel, ds, y) -> pd.DataFrame:
     len(y) log|slope|, so only P scalars leave the device."""
     y = np.asarray(y, dtype=np.float64)
     n = model.num_particles
-    if len(y) == 0:
-        logps = np.zeros(n)
-    elif isinstance(model.y_transform, TR.LinearTransform):
-        ym = torch.as_tensor(model.y_transform.apply(y), dtype=model.dtype,
-                             device=model.device)
-        *terms, depth_cap = _posterior_terms(model, ds)
-        lp = gp_math.posterior_logpdf_masked(*terms, ym, depth_cap)
-        logps = (lp.cpu().numpy().astype(np.float64)
-                 + len(y) * np.log(abs(model.y_transform.slope)))
-    else:
-        dist = predict_mvn(model, ds)
-        logps = np.array([c.logpdf(y) for c in dist.components])
-    return pd.DataFrame({"particle": np.arange(1, n + 1),
-                         "weight": model.particle_weights(), "logp": logps})
+    with trace.unit("api.predict_proba"):
+        if len(y) == 0:
+            logps = np.zeros(n)
+        elif isinstance(model.y_transform, TR.LinearTransform):
+            with trace.span("predict.marginals"):
+                with trace.sync("api.query"):
+                    ym = torch.as_tensor(model.y_transform.apply(y),
+                                         dtype=torch.float64,
+                                         device=model.device)
+                *terms, depth_cap = _posterior_terms(model, ds)
+                lp = gp_math.posterior_logpdf_masked(*terms, ym, depth_cap)
+                with trace.sync("api.moments"):
+                    lp = lp.cpu().numpy()
+            logps = lp + len(y) * np.log(abs(model.y_transform.slope))
+        else:
+            dist = predict_mvn(model, ds)
+            logps = np.array([c.logpdf(y) for c in dist.components])
+        weights = model.particle_weights()
+        with trace.span("predict.frame"):
+            return pd.DataFrame({"particle": np.arange(1, n + 1),
+                                 "weight": weights, "logp": logps})
 
 
 # ---------------------------------------------------------------------------

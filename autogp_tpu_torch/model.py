@@ -327,20 +327,17 @@ def lml_f64(node_type, params_z, noise_z, ts, xs, mask, config: C.GPConfig,
     decompose's fragment models, whose noise is 1e-10 plus MODEL_JITTER
     and whose kernels are often of low rank. Kernel 1's float64 entry
     assembles the padded-identity gram on the card (the plain version on
-    the CPU) and a float64 Cholesky factors it, as predict_mvn_sum's
-    conditioning does (torch.linalg.cholesky_ex; kernel 2 is float32
-    only). NaN where the gram is not positive definite."""
+    the CPU) and one float64 Cholesky factors it (`chol.dense_solve`,
+    the float64 route of ops/chol.py; kernel 2 is float32 only). NaN where the
+    gram is not positive definite."""
     params_t = transform_params(node_type, params_z, tables)
     noise = transform_noise(noise_z, config)
     K = cov.cov_tape(node_type, params_t, noise, ts, ts, mask, mask,
                      tables.depth_cap, gram=True, lower_only=False)
-    L, info = torch.linalg.cholesky_ex(K)
     P, N = node_type.shape[0], ts.shape[0]
-    alpha = torch.linalg.solve_triangular(
-        L, (xs * mask).expand(P, N)[..., None], upper=False)[..., 0]
-    val = gp_math.mvn_logpdf_from_factor(
-        torch.diagonal(L, dim1=-2, dim2=-1), alpha, mask)
-    return torch.where(info == 0, val, torch.full_like(val, float("nan")))
+    _, d, alpha, _ = chol.dense_solve(K, (xs * mask).expand(P, N),
+                                      want_l=False)
+    return gp_math.mvn_logpdf_from_factor(d, alpha, mask)
 
 
 def assemble_K0(node_type, params_z, ts, mask, config: C.GPConfig,

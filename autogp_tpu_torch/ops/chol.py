@@ -23,6 +23,12 @@ alpha) for predict's train factor; `chol_solve_strips` (diag, alpha, Wd,
 L) for the LML gradient and noise HMC, which covers both
 `cholesky_solve_strips_batched` (:424) and `cholesky_solve_wd_batched`
 (:403).
+
+Kernel 2 takes float32 only. A float64 K on the card, the predict
+family's float64 route for a float32 model, takes `dense_solve`: one
+float64 `torch.linalg.cholesky_ex` and a triangular solve, with the
+same contract (lower triangle read, NaN where K is not positive
+definite). Float32 K and every CPU K take the blocked loop as before.
 """
 
 from __future__ import annotations
@@ -82,6 +88,21 @@ def _launch(A):
     return L, W
 
 
+def dense_solve(K, x, want_l: bool):
+    """(L or None, diag(L), alpha, None) of K [P, N, N] (lower triangle
+    read) and x [P, N] by one dense factorization in K's dtype: the
+    float64 route on the card. NaN for a particle whose K is not
+    positive definite, as kernel 2 gives."""
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where((info > 0)[:, None, None],
+                    torch.full((), float("nan"), dtype=K.dtype,
+                               device=K.device), L)
+    alpha = torch.linalg.solve_triangular(L, x[..., None],
+                                          upper=False)[..., 0]
+    return (L if want_l else None, torch.diagonal(L, dim1=-2, dim2=-1),
+            alpha, None)
+
+
 def _driver(K, x, want_l: bool, want_wd: bool = False):
     """Right-looking blocked factorization of K [P, N, N] with the solve
     alpha = L^-1 x riding the panel loop. Returns (L or None, diag(L),
@@ -95,8 +116,11 @@ def _driver(K, x, want_l: bool, want_wd: bool = False):
     kernel 2. The Schur complements of an ill-conditioned gram cancel:
     on BASELINE config 2's joint gram (condition ~6e5, N = 1000) float32
     updates put the LML 0.05-0.18 off, float64 ones at most 0.01 (NVIDIA
-    H100, autogp_tpu_torch/scripts/chol_ab.py)."""
+    H100, autogp_tpu_torch/scripts/chol_ab.py). A float64 K on the card
+    takes `dense_solve` instead (L, diag and alpha only)."""
     with trace.span("ops.chol"):
+        if backend.on_cuda(K) and K.dtype == torch.float64 and not want_wd:
+            return dense_solve(K, x, want_l)
         P, N, _ = K.shape
         Bfull = min(N, BLOCK)
         if want_wd and N % Bfull != 0:

@@ -1249,3 +1249,99 @@ def test_graphed_trajectories_share_one_pool(cuda):
         _trajectory("params", inputs)
         _trajectory("noise", inputs)
     assert torch.cuda.memory_reserved(cuda) <= 1.1 * two
+
+
+@pytest.mark.parametrize("lower_only", [False, True])
+def test_chol_float64_route_matches_the_cpu(cuda, lower_only):
+    """A float64 K on the card takes the dense float64 route (no kernel 2
+    launch), reads only the lower triangle, and matches the CPU's blocked
+    float64 factorization within 1e-12 (normwise); NaN on a non-PD
+    particle."""
+    N = 200
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    X = torch.randn(8, N, N, generator=gen, device=cuda, dtype=torch.float64)
+    K = X @ X.mT / N + torch.eye(N, device=cuda, dtype=torch.float64)
+    K[3, N // 2, N // 2] = -1.0
+    if lower_only:
+        K = torch.tril(K)
+    x = torch.randn(8, N, generator=gen, device=cuda, dtype=torch.float64)
+    before = chol.launches
+    L, a = chol.chol_solve(K, x)
+    d, a2 = chol.chol_solve_diag(K, x)
+    torch.cuda.synchronize()
+    assert chol.launches == before
+    Lc, ac = chol.chol_solve(K.cpu(), x.cpu())
+    ok = torch.tensor([i != 3 for i in range(8)])
+    for got, want in ((L, Lc), (a, ac)):
+        got, want = got.cpu()[ok], want[ok]
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    for got, want in ((a2, a), (d, torch.diagonal(L, dim1=-2, dim2=-1))):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(L[3]).all() and torch.isnan(a[3]).all()
+
+
+def _forecast_gap(m_card, m_cpu, future, qs):
+    """The widest gap between the card's and the CPU's predict (mean and
+    quantiles), over the reference's predictive std, on the particles the
+    reference finds live; and their count."""
+    import autogp_tpu_torch as A
+    from benchmark import check
+    from test_torch_predict_f64 import _reference
+    got = A.predict(m_card, future, quantiles=qs)
+    want = A.predict(m_cpu, future, quantiles=qs)
+    _, std_ref = _reference(m_cpu, future)
+    P, p = m_cpu.num_particles, len(future)
+    live = torch.isfinite(std_ref).all(dim=1) & (std_ref > 0).all(dim=1)
+    return check.forecast_gap(check.forecast_table(got, P, p, qs),
+                              check.forecast_table(want, P, p, qs),
+                              std_ref, live), int(live.sum())
+
+
+def test_float64_forecast_on_the_card_matches_the_cpu(cuda):
+    """A float32 model's forecast on the card (kernel 1's float64 entry for
+    the training and cross blocks, ops/chol.py's float64 route) within
+    1e-6 predictive std of the CPU's float64 route on the same particles:
+    the cancelling case, which float32 got many std wrong, and 64 prior
+    particles on the stream's 512-point window."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    from autogp_tpu_torch import api
+    from test_torch_predict_f64 import CFG, QS, _series, cancelling_model
+    m, future = cancelling_model(cuda)
+    before = cov.f64_launches
+    gap, live = _forecast_gap(m, cancelling_model("cpu")[0], future, QS)
+    assert cov.f64_launches == before + 3
+    assert live == 2 and gap <= 1e-6, gap
+    t, y = _series(612, seed=9)
+    A.seed(9)
+    m = A.GPModel(t[:512], y[:512], n_particles=64, config=CFG)
+    p = m.particles
+    cpu = api.GPModel._from_state(
+        api.particles_from_numpy(
+            *(a.cpu().numpy() for a in (p.node_type, p.params, p.noise_z,
+                                        p.log_weights, p.lml)),
+            np.float64(0.0), np.arange(64), device="cpu",
+            dtype=torch.float32),
+        CFG, m.ds, m.y, m.ds_transform, m.y_transform)
+    gap, live = _forecast_gap(m, cpu, t[512:], QS)
+    assert live >= 32 and gap <= 1e-6, gap
+
+
+def test_a_traced_predict_on_the_card_names_every_sync(cuda):
+    """predict on the card meets no synchronizing operation outside a
+    named site, the first call and a cached one alike."""
+    import numpy as np
+    import autogp_tpu_torch as A
+    from autogp_tpu_torch.utils import trace
+    from test_torch_predict_f64 import QS, cancelling_model
+    m, future = cancelling_model(cuda)
+    A.predict(m, future, quantiles=QS)              # warm-up
+    m.particles = m.particles
+    with trace.recording() as rec:
+        A.predict(m, future, quantiles=QS)
+        A.predict(m, future, quantiles=QS)
+        A.predict_mvn(m, future[:8])
+        A.predict_proba(m, future[:8], np.zeros(8))
+    assert not rec.unnamed, sorted({u[3] for u in rec.unnamed})
+    assert rec.units == ["api.predict", "api.predict", "api.predict_mvn",
+                         "api.predict_proba"]

@@ -195,3 +195,61 @@ def test_a_fit_gives_the_same_bits_with_tracing_on_and_off():
     for i in frogs:
         kids = [s[0] for s in rec.spans if s[3] == i]
         assert kids == ["model.lml", "model.lml_grad"]
+
+
+def _float32_model():
+    """A float32 model on the CPU: 8 prior particles on 40 points."""
+    t = np.arange(40, dtype=np.float64)
+    y = np.sin(t / 5.0) + 0.01 * t
+    A.seed(2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return A.GPModel(t, y, n_particles=8, device="cpu",
+                         dtype=torch.float32)
+
+
+def _kids(rec, i):
+    return [s[0] for s in rec.spans if s[3] == i]
+
+
+def test_a_recorded_predict_is_a_unit_with_its_spans():
+    """predict runs as the api.predict unit: predict.factor (the float64
+    factor; predict.factor_cached once it is cached), predict.marginals
+    and predict.frame, every device read at a named site."""
+    m = _float32_model()
+    future = np.arange(40, 48, dtype=np.float64)
+    with trace.recording() as rec:
+        A.predict(m, future, quantiles=[0.1, 0.9])
+        A.predict(m, future, quantiles=[0.1, 0.9])
+    assert rec.units == ["api.predict", "api.predict"]
+    tops = [i for i, s in enumerate(rec.spans) if s[3] < 0]
+    assert [rec.spans[i][0] for i in tops] == ["api.predict"] * 2
+    assert _kids(rec, tops[0]) == ["predict.factor", "predict.marginals",
+                                   "predict.frame"]
+    assert _kids(rec, tops[1]) == ["predict.factor_cached",
+                                   "predict.marginals", "predict.frame"]
+    factor = next(i for i, s in enumerate(rec.spans)
+                  if s[0] == "predict.factor")
+    assert "ops.chol" in _kids(rec, factor)
+    sites = rec.by_site()
+    assert {"api.query", "api.moments", "api.weights",
+            "smc.dataset"} <= set(sites)
+    assert sites["api.moments"] == 2 and sites["api.weights"] == 2
+    assert not rec.unnamed
+
+
+@pytest.mark.parametrize("call, unit", [
+    (lambda m, ds: A.predict_mvn(m, ds), "api.predict_mvn"),
+    (lambda m, ds: A.predict_quantile(m, ds, 0.5), "api.predict_quantile"),
+    (lambda m, ds: A.predict_proba(m, ds, np.zeros(len(ds))),
+     "api.predict_proba")])
+def test_the_other_predict_entries_are_units(call, unit):
+    m = _float32_model()
+    with trace.recording() as rec:
+        call(m, np.arange(40, 44, dtype=np.float64))
+    assert rec.units == [unit]
+    top = next(i for i, s in enumerate(rec.spans) if s[3] < 0)
+    kids = _kids(rec, top)
+    assert "predict.marginals" in kids and kids[-1] == "predict.frame"
+    assert rec.by_site()["api.moments"] == 1
+    assert not rec.unnamed
